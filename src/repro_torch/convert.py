@@ -1,0 +1,90 @@
+"""Carry state between the reference package and the port.
+
+The reference's state travels as plain dicts of numpy arrays keyed by
+field name (``{f: np.asarray(getattr(obj, f))}``); these functions turn
+such dicts into the port's dataclasses and back.  Integer fields keep
+their int32 values, floats their float32 bits, and a key its two uint32
+words.  Nothing here imports the reference package.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.chunks import ChunkIndex
+from repro_torch.core.exsample import ExSampleCarry
+from repro_torch.core.matcher import MatcherState
+from repro_torch.core.state import SamplerState
+from repro_torch.device import resolve
+from repro_torch.sim.repository import Repository
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A copy of ``a`` as a tensor on ``device`` (default: the card);
+    uint32 words widen to int64."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(resolve(device))
+
+
+def repository_from_numpy(d: dict, device=None) -> Repository:
+    arrays = {f.name: _tensor(d[f.name], device) for f in dataclasses.fields(Repository)
+              if f.name not in ("total_frames", "num_videos")}
+    return Repository(**arrays, total_frames=int(d["total_frames"]), num_videos=int(d["num_videos"]))
+
+
+def chunks_from_numpy(d: dict, device=None) -> ChunkIndex:
+    return ChunkIndex(**{f.name: _tensor(d[f.name], device).int()
+                         for f in dataclasses.fields(ChunkIndex)})
+
+
+def sampler_from_numpy(d: dict, device=None) -> SamplerState:
+    return SamplerState(
+        n1=_tensor(d["n1"], device).float(), n=_tensor(d["n"], device).float(),
+        frames=_tensor(d["frames"], device).int(),
+        alpha0=float(d.get("alpha0", SamplerState.alpha0)),
+        beta0=float(d.get("beta0", SamplerState.beta0)),
+    )
+
+
+def matcher_from_numpy(d: dict, device=None) -> MatcherState:
+    arrays = {f: _tensor(d[f], device) for f in
+              ("boxes", "feats", "video", "frame", "chunk", "times_seen", "cursor", "total_inserted")}
+    for f in ("video", "frame", "chunk", "times_seen", "cursor", "total_inserted"):
+        arrays[f] = arrays[f].int()
+    statics = {f: cast(d[f]) for f, cast in
+               (("iou_thresh", float), ("time_gate", int), ("feat_thresh", float)) if f in d}
+    return MatcherState(**arrays, **statics)
+
+
+def carry_from_numpy(d: dict, device=None) -> ExSampleCarry:
+    """``d`` holds ``sampler`` and ``matcher`` dicts, ``key`` (uint32[2]),
+    ``step`` and ``results``."""
+    key = np.asarray(d["key"]).astype(np.uint32).astype(np.int64)
+    return ExSampleCarry(
+        sampler=sampler_from_numpy(d["sampler"], device),
+        matcher=matcher_from_numpy(d["matcher"], device),
+        key=_tensor(key, device),
+        step=_tensor(np.int32(d["step"]), device),
+        results=_tensor(np.int32(d["results"]), device),
+    )
+
+
+def to_numpy(obj) -> dict:
+    """Any of the port's state dataclasses as a dict of numpy arrays (and
+    its static fields as Python values); a carry nests its sampler and
+    matcher, and its key comes back as uint32[2]."""
+    if isinstance(obj, ExSampleCarry):
+        return {
+            "sampler": to_numpy(obj.sampler), "matcher": to_numpy(obj.matcher),
+            "key": obj.key.cpu().numpy().astype(np.uint32),
+            "step": np.int32(obj.step.item()), "results": np.int32(obj.results.item()),
+        }
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+    return out

@@ -1,0 +1,97 @@
+"""Thompson sampling over Gamma beliefs (paper §3.3.1, Eq. 9-10).
+
+Counterpart of ``repro.core.thompson``.  Three samplers:
+
+  * ``"exact"``           — Gamma draws from ``torch._standard_gamma`` with a
+    ``torch.Generator`` seeded from the key.  Its numbers differ from
+    ``jax.random.gamma``; it is held to the reference only statistically.
+  * ``"wilson_hilferty"`` — the cube-normal approximation on the port's
+    JAX-compatible normals: the same chunk choices as JAX for the same key.
+  * ``"pallas"``          — the fused choice kernel (``kernels.thompson``),
+    with exhaustion encoded as an ``alpha < 0`` sentinel; the same choices
+    as ``"wilson_hilferty"``.
+
+Divisions here are tensor by tensor: on CUDA, dividing by a Python scalar
+becomes a multiply by its reciprocal and can differ in the last bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.state import SamplerState, point_estimate
+
+
+def gamma_params(state: SamplerState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(α, β) of Eq. 10: α = N¹ + α₀ clamped at α₀/2, β = n + β₀."""
+    alpha = state.n1 + state.alpha0
+    beta = state.n + state.beta0
+    return torch.clamp_min(alpha, state.alpha0 * 0.5), beta
+
+
+def wilson_hilferty(alpha: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """X ≈ α · max(1 − 1/(9α) + z/(3√α), 0)³ for X ~ Γ(α, 1), evaluated in
+    the reference's operation order."""
+    a9 = alpha * 9.0
+    c = (1.0 - torch.ones_like(a9) / a9) + z / (torch.sqrt(alpha) * 3.0)
+    c = torch.clamp_min(c, 0.0)
+    return alpha * ((c * c) * c)
+
+
+def _first_argmax(scores: torch.Tensor) -> torch.Tensor:
+    """jnp.argmax: the first index of each row's maximum, as int32."""
+    return torch.argmax(scores, dim=-1).int()
+
+
+def draw_scores(key: torch.Tensor, state: SamplerState, *, cohorts: int = 1) -> torch.Tensor:
+    """Gamma Thompson draws, f32[cohorts, M], from a generator seeded by
+    ``key`` (statistically equivalent to the reference, not bit-equal)."""
+    alpha, beta = gamma_params(state)
+    words = key.tolist()
+    gen = torch.Generator(device=alpha.device)
+    gen.manual_seed((int(words[0]) << 32 | int(words[1])) & (2**63 - 1))
+    draws = torch._standard_gamma(alpha[None, :].expand(cohorts, -1).contiguous(), generator=gen)
+    scores = draws / beta[None, :]
+    return torch.where(state.exhausted()[None, :], torch.full_like(scores, -torch.inf), scores)
+
+
+def draw_scores_wilson_hilferty(
+    key: torch.Tensor, state: SamplerState, *, cohorts: int = 1
+) -> torch.Tensor:
+    """Approximate Thompson draws via the WH transform, f32[cohorts, M]."""
+    alpha, beta = gamma_params(state)
+    z = prng.normal(key, (cohorts, alpha.shape[0]))
+    scores = wilson_hilferty(alpha[None, :], z) / beta[None, :]
+    return torch.where(state.exhausted()[None, :], torch.full_like(scores, -torch.inf), scores)
+
+
+def choose_chunks(
+    key: torch.Tensor,
+    state: SamplerState,
+    *,
+    cohorts: int = 1,
+    method: str = "exact",
+) -> torch.Tensor:
+    """Algorithm 1 lines 5-8, batched (§3.7.1).  Returns i32[cohorts]."""
+    if method == "exact":
+        scores = draw_scores(key, state, cohorts=cohorts)
+    elif method == "wilson_hilferty":
+        scores = draw_scores_wilson_hilferty(key, state, cohorts=cohorts)
+    elif method == "pallas":
+        # deferred import: kernels.thompson.ref imports this module
+        from repro_torch.kernels.thompson.ops import choose
+
+        alpha, beta = gamma_params(state)
+        alpha = torch.where(state.exhausted(), torch.full_like(alpha, -1.0), alpha)
+        z = prng.normal(key, (cohorts, alpha.shape[0]))
+        idx, _ = choose(alpha, beta, z)
+        return idx
+    else:
+        raise ValueError(f"unknown Thompson method: {method!r}")
+    return _first_argmax(scores)
+
+
+def greedy_chunks(state: SamplerState, *, cohorts: int = 1) -> torch.Tensor:
+    """Greedy baseline: argmax of the point estimate, no posterior noise."""
+    idx = _first_argmax(point_estimate(state))
+    return idx.expand(cohorts)

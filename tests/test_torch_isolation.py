@@ -1,0 +1,78 @@
+"""repro_torch stands alone: it imports neither JAX nor the reference
+package, and its entry points run on the card unless told otherwise."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(p for p in PKG.rglob("*.py"))
+
+
+def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
+    names = [".".join(p.relative_to(PKG.parent).with_suffix("").parts) for p in _modules()]
+    names = [n[: -len(".__init__")] if n.endswith(".__init__") else n for n in names]
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'jax' or name.startswith(('jax.', 'jaxlib')) or name == 'repro' "
+        "or name.startswith('repro.'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_jax_or_reference_imports_in_the_source():
+    offenders = []
+    for path in _modules():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    offenders.append(f"{path.relative_to(PKG)}:{node.lineno} {m}")
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, the default device is an error, not a CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.device import resolve
+    from repro_torch.launch import search
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve()
+    with pytest.raises(RuntimeError, match="cuda"):
+        search.main(["--scale", "0.02", "--max-steps", "8"])
+    assert resolve("cpu").type == "cpu"
+
+
+def test_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import search
+
+    search.main(["--device", "cpu", "--scale", "0.02", "--query-class", "7",
+                 "--plan", '{"result_limit": 3, "max_steps": 64, "cohorts": 8, "method": "pallas"}'])
+    out = capsys.readouterr().out
+    assert "lowering=scan method=pallas" in out and "ExSample[scan]" in out

@@ -1,0 +1,105 @@
+"""Parity of repro_torch's key stream with jax.random (threefry2x32,
+partitionable mode).
+
+Integer outputs (keys, split, fold_in, raw bits) and uniforms must be
+bit-exact.  Normals go through XLA's float32 ErfInv and XLA CPU's log1p,
+which the port rebuilds with the same fused multiply-adds; measured over
+4M draws (20 keys × 200×1000), 1.3e-5 of them differ, each by at most
+2 ulp and all in the far tail (|z| > 2.9, ErfInv's w ≥ 5 branch), where
+the jitted reference's evaluation could not be reproduced exactly.  The
+tests hold normals to that: at most 2 ulp, at most 1e-4 of draws.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng
+
+
+def _tk(key) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.uint32)
+
+
+def test_jax_runs_threefry_partitionable():
+    # the port reproduces the partitionable key stream only
+    assert jax.config.jax_threefry_partitionable
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 7919, 2**31 - 1, -1, -12345])
+def test_prngkey(seed):
+    np.testing.assert_array_equal(_u32(prng.PRNGKey(seed, device="cpu")), np.asarray(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 99])
+@pytest.mark.parametrize("num", [1, 2, 3, 8, 50])
+def test_split(seed, num):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(_u32(prng.split(_tk(key), num)), np.asarray(jax.random.split(key, num)))
+
+
+@pytest.mark.parametrize("data", [0, 1, 12345, 2**31 - 1, 2**32 - 1])
+def test_fold_in(data):
+    key = jax.random.PRNGKey(11)
+    np.testing.assert_array_equal(
+        _u32(prng.fold_in(_tk(key), data)),
+        np.asarray(jax.random.fold_in(key, np.uint32(data))))
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5), (50, 22), (50, 1001), (2, 3, 4)])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_random_bits(shape, seed):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(
+        _u32(prng.random_bits(_tk(key), shape)), np.asarray(jax.random.bits(key, shape)))
+
+
+@pytest.mark.parametrize("shape", [(50, 22), (7, 1025), (1000,)])
+def test_uniform_bit_exact(shape):
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        ref = np.asarray(jax.jit(lambda k: jax.random.uniform(k, shape))(key))
+        got = prng.uniform(_tk(key), shape).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_normal_within_stated_ulp_bound():
+    total = differ = 0
+    for seed in range(6):
+        key = jax.random.PRNGKey(seed)
+        ref = np.asarray(jax.jit(lambda k: jax.random.normal(k, (64, 1001)))(key))
+        got = prng.normal(_tk(key), (64, 1001)).numpy()
+        ulp = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32).astype(np.int64))
+        assert ulp.max() <= 2, f"seed {seed}: {ulp.max()} ulp"
+        differ += int((ulp > 0).sum())
+        total += ulp.size
+    assert differ / total <= 1e-4, f"{differ}/{total} normals differ"
+
+
+def test_driver_key_sequence():
+    """The drivers' exact use: split(carry.key, 3), then normal(k_choice,
+    (cohorts, M)) and split(k_det, cohorts)."""
+    key = jax.random.PRNGKey(2024)
+    tkey = _tk(key)
+    for _ in range(5):
+        key, k_choice, k_det = jax.random.split(key, 3)
+        t3 = prng.split(tkey, 3)
+        tkey, tc, td = t3[0], t3[1], t3[2]
+        np.testing.assert_array_equal(_u32(tkey), np.asarray(key))
+        np.testing.assert_array_equal(_u32(prng.split(td, 8)), np.asarray(jax.random.split(k_det, 8)))
+        ref = np.asarray(jax.jit(lambda k: jax.random.normal(k, (8, 22)))(k_choice))
+        got = prng.normal(tc, (8, 22)).numpy()
+        np.testing.assert_array_max_ulp(got, ref, maxulp=2)
+
+
+def test_log1p_matches_xla_cpu():
+    """XLA CPU's own float32 log1p (both of its branches) is rebuilt bit for bit."""
+    x = np.random.default_rng(0).uniform(-0.9999, 3.0, 200_000).astype(np.float32)
+    ref = np.asarray(jax.jit(jnp.log1p)(x))
+    got = prng._xla_log1p_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
