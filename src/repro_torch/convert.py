@@ -4,7 +4,11 @@ The reference's state travels as plain dicts of numpy arrays keyed by
 field name (``{f: np.asarray(getattr(obj, f))}``); these functions turn
 such dicts into the port's dataclasses and back.  Integer fields keep
 their int32 values, floats their float32 bits, and a key its two uint32
-words.  Nothing here imports the reference package.
+words.  A multi-query carry (a leading ``[Q]`` on every array, keys
+uint32[Q, 2]) converts the same way, and so does the multi-query driver's
+``DetectionCache`` (``{"tag", "store"}``; the port's cache keeps one
+scratch row past its capacity, added here and stripped by ``to_numpy``).
+Nothing here imports the reference package.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from repro_torch.core.exsample import ExSampleCarry
 from repro_torch.core.matcher import MatcherState
 from repro_torch.core.state import SamplerState
 from repro_torch.device import resolve
+from repro_torch.serve.batcher import DetectionCache
+from repro_torch.sim.oracle import Detections
 from repro_torch.sim.repository import Repository
 
 
@@ -61,28 +67,49 @@ def matcher_from_numpy(d: dict, device=None) -> MatcherState:
 
 
 def carry_from_numpy(d: dict, device=None) -> ExSampleCarry:
-    """``d`` holds ``sampler`` and ``matcher`` dicts, ``key`` (uint32[2]),
-    ``step`` and ``results``."""
+    """``d`` holds ``sampler`` and ``matcher`` dicts, ``key`` (uint32[2],
+    or uint32[Q, 2] for Q queries), ``step`` and ``results``."""
     key = np.asarray(d["key"]).astype(np.uint32).astype(np.int64)
     return ExSampleCarry(
         sampler=sampler_from_numpy(d["sampler"], device),
         matcher=matcher_from_numpy(d["matcher"], device),
         key=_tensor(key, device),
-        step=_tensor(np.int32(d["step"]), device),
-        results=_tensor(np.int32(d["results"]), device),
+        step=_tensor(np.asarray(d["step"], np.int32), device),
+        results=_tensor(np.asarray(d["results"], np.int32), device),
     )
+
+
+def cache_from_numpy(d: dict, device=None) -> DetectionCache:
+    """``d`` holds ``tag`` (i32[S]) and ``store``, a dict of arrays with a
+    leading [S]; the fields of ``Detections`` become a ``Detections``."""
+    def grow(a):
+        a = np.asarray(a)
+        return np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)])
+
+    store = {k: _tensor(grow(v), device) for k, v in d["store"].items()}
+    if set(store) == set(Detections._fields):
+        store = Detections(**store)
+    tag = np.concatenate([np.asarray(d["tag"], np.int32), np.full((1,), -1, np.int32)])
+    return DetectionCache(tag=_tensor(tag, device), store=store)
 
 
 def to_numpy(obj) -> dict:
     """Any of the port's state dataclasses as a dict of numpy arrays (and
     its static fields as Python values); a carry nests its sampler and
-    matcher, and its key comes back as uint32[2]."""
+    matcher, and its key comes back as uint32; a cache comes back without
+    its scratch row, its store as a dict."""
     if isinstance(obj, ExSampleCarry):
         return {
             "sampler": to_numpy(obj.sampler), "matcher": to_numpy(obj.matcher),
             "key": obj.key.cpu().numpy().astype(np.uint32),
-            "step": np.int32(obj.step.item()), "results": np.int32(obj.results.item()),
+            "step": obj.step.cpu().numpy().astype(np.int32),
+            "results": obj.results.cpu().numpy().astype(np.int32),
         }
+    if isinstance(obj, DetectionCache):
+        store = obj.store._asdict() if isinstance(obj.store, tuple) else obj.store
+        s = obj.capacity
+        return {"tag": obj.tag[:s].cpu().numpy(),
+                "store": {k: v[:s].cpu().numpy() for k, v in store.items()}}
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)

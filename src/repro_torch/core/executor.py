@@ -1,24 +1,31 @@
-"""SearchPlan lowering + execution for the single-query kinds.
+"""SearchPlan lowering + execution for the single-device kinds.
 
 Counterpart of ``repro.core.executor``: ``lower(plan)`` resolves a
 :class:`~repro_torch.core.plan.SearchPlan` with the reference's own rules
-and ``LoweredPlan.run`` executes the ``host`` or ``scan`` driver,
-returning a :class:`SearchResult` with the same :class:`SearchStats` the
-reference fills for those kinds.  The other kinds belong to later slices
-of the port and raise :class:`PlanCompatibilityError` when lowered.
+and ``LoweredPlan.run`` executes the ``host``, ``scan`` or ``multi``
+driver, returning a :class:`SearchResult` with the same
+:class:`SearchStats` the reference fills for those kinds.  The other
+kinds, and the repository index, belong to later slices of the port and
+raise :class:`PlanCompatibilityError` when lowered.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core.chunks import ChunkIndex
-from repro_torch.core.exsample import DetectorFn, ExSampleCarry, _host_search, _scan_search
+from repro_torch.core.exsample import (
+    DetectorFn,
+    ExSampleCarry,
+    SelectFn,
+    _host_search,
+    _multi_search,
+    _scan_search,
+)
 from repro_torch.core.plan import PlanCompatibilityError, PlanError, SearchPlan
 
 # kinds the reference lowers that this package does not run yet, with the
 # slice of the port that brings each
 _LATER_SLICES = {
-    "multi": "the Q-axis multi-query slice",
     "async": "the async runtime slice",
     "async_multi": "the async runtime slice",
     "sharded": "the mesh slice",
@@ -28,8 +35,9 @@ _LATER_SLICES = {
 
 @dataclasses.dataclass(frozen=True)
 class SearchStats:
-    """Uniform per-run accounting (the reference's fields; the single-query
-    kinds fill detector invocations, frames sampled and the ring totals)."""
+    """Uniform per-run accounting (the reference's fields; the kinds the
+    port runs fill detector invocations, cache hits, rounds, frames
+    sampled and the ring totals)."""
 
     detector_invocations: int = 0
     cache_hits: int = 0
@@ -69,6 +77,9 @@ class SearchResult:
     stats: SearchStats
     plan: SearchPlan
     kind: str
+    # the multi kind's final DetectionCache, or None; the reference hands
+    # it to the repository index (a later slice of the port)
+    final_cache: object = None
 
     @property
     def num_queries(self) -> int:
@@ -86,7 +97,7 @@ def lower(plan: SearchPlan) -> "LoweredPlan":
         raise PlanCompatibilityError(
             f"plan lowers to kind {kind!r}, which repro_torch does not run yet "
             f"({_LATER_SLICES[kind]} of the port); this package runs the "
-            "single-query 'host' and 'scan' kinds", field="execution")
+            "'host', 'scan' and 'multi' kinds", field="execution")
     if plan.execution.index is not None:
         raise PlanCompatibilityError(
             "execution.index needs the repository-index slice of the port",
@@ -94,34 +105,75 @@ def lower(plan: SearchPlan) -> "LoweredPlan":
     return LoweredPlan(plan=plan, kind=kind, method=method)
 
 
+def _matcher_totals(carry: ExSampleCarry) -> dict:
+    return dict(
+        matcher_inserted=int(carry.matcher.total_inserted.sum()),
+        matcher_capacity=int(carry.matcher.times_seen.shape[-1]),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class LoweredPlan:
-    """A validated plan bound to ``host`` or ``scan``."""
+    """A validated plan bound to ``host``, ``scan`` or ``multi``."""
 
     plan: SearchPlan
     kind: str
     method: str
 
-    def run(self, carry: ExSampleCarry, chunks: ChunkIndex, *, detector: DetectorFn) -> SearchResult:
+    def run(self, carry: ExSampleCarry, chunks: ChunkIndex, *, detector: DetectorFn,
+            select: SelectFn | None = None) -> SearchResult:
+        """Run the plan from ``carry``.  ``multi`` takes a leading-[Q]
+        carry, a batched detector and an optional ``select`` predicate
+        (see ``core.exsample``); the other kinds a single-query carry."""
         p = self.plan
-        if carry.step.dim() != 0:
+        multi = self.kind == "multi"
+        ndim = carry.step.dim()
+        if multi and ndim != 1:
+            raise PlanError(
+                f"the {self.kind!r} lowering needs a leading-[Q] carry "
+                "(init_carry_multi / stack_carries); got a single-query carry",
+                field="queries")
+        if multi and carry.step.shape[0] != p.queries:
+            raise PlanError(
+                f"carry has {carry.step.shape[0]} queries but the plan declares "
+                f"queries={p.queries}", field="queries")
+        if not multi and ndim != 0:
             raise PlanError(
                 f"the {self.kind!r} lowering is single-query but the carry has a "
-                "leading axis", field="queries")
-        limit = p.result_limit[0] if isinstance(p.result_limit, tuple) else p.result_limit
-        fn = _host_search if self.kind == "host" else _scan_search
-        out, trace = fn(
-            carry, chunks, detector=detector, result_limit=int(limit),
+                "leading axis; set queries/queries_axis on the plan", field="queries")
+        if select is not None and not multi:
+            raise PlanError(
+                "select predicates ride on the shared Q-axis detector pass; this "
+                f"plan lowers to the single-query {self.kind!r} driver", field="queries")
+        limits = p.result_limit if isinstance(p.result_limit, tuple) else (p.result_limit,) * p.queries
+        if not multi:
+            fn = _host_search if self.kind == "host" else _scan_search
+            out, trace = fn(
+                carry, chunks, detector=detector, result_limit=int(limits[0]),
+                max_steps=p.max_steps, cohorts=p.cohorts, method=self.method,
+                trace_every=p.trace_every,
+            )
+            step = int(out.step)
+            stats = SearchStats(detector_invocations=step, frames_sampled=step,
+                                **_matcher_totals(out))
+            return self._package(out, [trace], stats)
+        cache = p.execution.cache
+        if cache == -1:
+            cache = chunks.total_frames
+        out, traces, ms = _multi_search(
+            carry, chunks, detector=detector, result_limits=[int(v) for v in limits],
             max_steps=p.max_steps, cohorts=p.cohorts, method=self.method,
-            trace_every=p.trace_every,
+            trace_every=p.trace_every, select=select, cache_frames=cache or 0,
         )
-        step = int(out.step)
         stats = SearchStats(
-            detector_invocations=step, frames_sampled=step,
-            matcher_inserted=int(out.matcher.total_inserted),
-            matcher_capacity=int(out.matcher.times_seen.shape[-1]),
+            detector_invocations=ms["detector_invocations"], cache_hits=ms["cache_hits"],
+            rounds=ms["rounds"], frames_sampled=ms["frames_sampled"], **_matcher_totals(out),
         )
+        return self._package(out, traces, stats, final_cache=ms["final_cache"])
+
+    def _package(self, out, traces, stats, final_cache=None) -> SearchResult:
         return SearchResult(
-            carry=out, steps=(step,), results=(int(out.results),), traces=[trace],
-            stats=stats, plan=p, kind=self.kind,
+            carry=out, steps=tuple(out.step.reshape(-1).tolist()),
+            results=tuple(out.results.reshape(-1).tolist()), traces=traces,
+            stats=stats, plan=self.plan, kind=self.kind, final_cache=final_cache,
         )

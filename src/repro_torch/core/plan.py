@@ -424,10 +424,10 @@ class SearchPlan:
 
         return lower(self)
 
-    def run(self, carry, chunks, *, detector):
+    def run(self, carry, chunks, *, detector, select=None):
         """``lower()`` + execute.  See
         :meth:`repro_torch.core.executor.LoweredPlan.run`."""
-        return self.lower().run(carry, chunks, detector=detector)
+        return self.lower().run(carry, chunks, detector=detector, select=select)
 
     # ---- serde ------------------------------------------------------------
 

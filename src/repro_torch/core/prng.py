@@ -3,7 +3,11 @@
 The reference drivers draw every random number through ``jax.random``
 (``split`` → ``normal``); the port reproduces those draws so that the
 same key gives the same chunk choices.  A key is an int64 tensor of shape
-``[..., 2]`` holding two uint32 words.  Every word is kept in an int64 and
+``[..., 2]`` holding two uint32 words; ``split``, ``fold_in``,
+``random_bits``, ``uniform`` and ``normal`` take a batch of keys
+(``[Q, 2]``) as well as one, and row q of a batched call equals the call
+on ``key[q]`` bit for bit (threefry is elementwise, so the key words
+broadcast against the counters, as ``jax.vmap`` does).  Every word is kept in an int64 and
 masked with ``& 0xFFFFFFFF`` after each add and shift, so the same code
 runs unchanged on the CPU and on CUDA (neither has a usable uint32).
 
@@ -66,28 +70,35 @@ def _counts(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
+def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two key words of ``key[..., 2]``, each shaped ``[..., 1]`` to
+    broadcast against a trailing counter axis."""
+    return key[..., 0:1], key[..., 1:2]
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` → int64[num, 2]."""
+    """``jax.random.split(key, num)``: int64[..., num, 2] for keys [..., 2]."""
     lo = _counts(num, key.device)
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    b0, b1 = threefry2x32(*_words(key), torch.zeros_like(lo), lo)
     return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)``."""
+    """``jax.random.fold_in(key, data)`` for keys [..., 2]."""
     x0 = torch.zeros((1,), dtype=torch.int64, device=key.device)
     x1 = torch.full((1,), int(data) & _M32, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], x0, x1)
-    return torch.cat([y0, y1])
+    y0, y1 = threefry2x32(*_words(key), x0, x1)
+    return torch.cat([y0, y1], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit ``jax.random.bits``: ``hi ^ lo`` of threefry over the flat
-    index (high count word 0).  int64 tensor of uint32 values."""
+    index (high count word 0).  int64 tensor of uint32 values, shaped
+    ``key.shape[:-1] + shape``."""
     shape = tuple(shape)
     lo = _counts(math.prod(shape), key.device)
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape(shape)
+    b0, b1 = threefry2x32(*_words(key), torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape(key.shape[:-1] + shape)
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
@@ -202,7 +213,7 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 
 def normal(key, shape) -> torch.Tensor:
     """``jax.random.normal`` (float32): ``√2 · erfinv(u)``, u uniform on
-    (nextafter(−1, 0), 1)."""
+    (nextafter(−1, 0), 1).  Keys [..., 2] give ``key.shape[:-1] + shape``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return erfinv_f32(u) * _f32(math.sqrt(2.0))

@@ -9,6 +9,11 @@ Counterpart of ``repro.core.state``.  Per chunk j:
 Updates are additive, so they commute.  The scatter-adds are
 ``index_add_`` on a copy; on CUDA they use atomics, which stay exact
 because every delta is an integer-valued float32 far below 2²⁴.
+
+The multi-query carry holds Q rows of statistics (``[Q, M]`` on every
+field).  There the updates take one chunk per query (``i[Q]``, or
+``i[Q, K]``) and scatter into the flattened statistics at ``q·M + j``, so
+no query's delta can land in another's row.
 """
 from __future__ import annotations
 
@@ -26,18 +31,19 @@ DEFAULT_BETA0: float = 1.0
 class SamplerState:
     """Dense ExSample statistics over M chunks."""
 
-    n1: torch.Tensor          # f32[M]
-    n: torch.Tensor           # f32[M]
-    frames: torch.Tensor      # i32[M]
+    n1: torch.Tensor          # f32[M], or f32[Q, M] for Q queries
+    n: torch.Tensor           # f32[M] / f32[Q, M]
+    frames: torch.Tensor      # i32[M] / i32[Q, M]
     alpha0: float = DEFAULT_ALPHA0
     beta0: float = DEFAULT_BETA0
 
     @property
     def num_chunks(self) -> int:
-        return self.n1.shape[0]
+        return self.n1.shape[-1]
 
     def exhausted(self) -> torch.Tensor:
-        """bool[M] — True where every frame of the chunk has been sampled."""
+        """bool[M] (bool[Q, M]) — True where every frame of the chunk has
+        been sampled."""
         return self.n >= self.frames.to(self.n.dtype)
 
     def to(self, device) -> "SamplerState":
@@ -60,16 +66,30 @@ def init_state(
     return SamplerState(n1=zeros, n=zeros.clone(), frames=frames, alpha0=alpha0, beta0=beta0)
 
 
-def _as_index(idx, device) -> torch.Tensor:
-    return torch.as_tensor(idx, device=device).reshape(-1).long()
+def _as_index(state: SamplerState, idx) -> torch.Tensor:
+    """Chunk indices as flat positions in ``n1``/``n``: ``j`` for one
+    query; ``q·M + j`` for Q queries, where ``idx`` has a leading ``[Q]``.
+    Keeps ``idx``'s shape."""
+    idx = torch.as_tensor(idx, device=state.n1.device).long()
+    if state.n1.dim() == 1:
+        return idx
+    q, m = state.n1.shape
+    rows = torch.arange(q, device=idx.device).reshape((q,) + (1,) * (idx.dim() - 1))
+    return rows * m + idx
 
 
 def _per_entry(v, idx: torch.Tensor, dtype) -> torch.Tensor:
-    """``v`` broadcast over ``idx``; a Python number becomes a device fill
-    rather than a host-to-device copy (which would synchronise)."""
+    """``v`` broadcast over ``idx`` (trailing axes added to a per-query
+    ``v``) and flattened; a Python number becomes a device fill rather
+    than a host-to-device copy (which would synchronise)."""
     if isinstance(v, torch.Tensor):
-        return v.to(dtype).expand(idx.shape)
-    return torch.full(idx.shape, float(v), dtype=dtype, device=idx.device)
+        v = v.to(dtype)
+        return v.reshape(v.shape + (1,) * (idx.dim() - v.dim())).expand(idx.shape).reshape(-1)
+    return torch.full((idx.numel(),), float(v), dtype=dtype, device=idx.device)
+
+
+def _scatter_add(t: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return t.clone().reshape(-1).index_add_(0, idx.reshape(-1), v).reshape(t.shape)
 
 
 def apply_update(
@@ -81,20 +101,23 @@ def apply_update(
     samples=1,
 ) -> SamplerState:
     """Algorithm 1 lines 13-14: ``N¹[j] += d0 - d1``, ``n[j] += samples``.
-    Colliding chunk indices accumulate."""
-    idx = _as_index(chunk_idx, state.n1.device)
+    Colliding chunk indices accumulate.  With Q queries, ``chunk_idx``,
+    ``d0``, ``d1`` and ``samples`` are per query (``[Q]``); ``samples``
+    of 0 leaves a finished query's row as it was."""
+    idx = _as_index(state, chunk_idx)
     dtype = state.n1.dtype
-    n1 = state.n1.clone().index_add_(0, idx, _per_entry(d0, idx, dtype) - _per_entry(d1, idx, dtype))
-    n = state.n.clone().index_add_(0, idx, _per_entry(samples, idx, dtype))
+    n1 = _scatter_add(state.n1, idx, _per_entry(d0, idx, dtype) - _per_entry(d1, idx, dtype))
+    n = _scatter_add(state.n, idx, _per_entry(samples, idx, dtype))
     return dataclasses.replace(state, n1=n1, n=n)
 
 
 def apply_cross_chunk_decrement(state: SamplerState, home_chunk, count) -> SamplerState:
     """§3.4: a result first seen in ``home_chunk`` was re-found in another
-    chunk — its contribution leaves N¹ of the home chunk."""
-    idx = _as_index(home_chunk, state.n1.device)
+    chunk — its contribution leaves N¹ of the home chunk.  With Q
+    queries, ``home_chunk`` and ``count`` have a leading ``[Q]``."""
+    idx = _as_index(state, home_chunk)
     cnt = _per_entry(count, idx, state.n1.dtype)
-    return dataclasses.replace(state, n1=state.n1.clone().index_add_(0, idx, -cnt))
+    return dataclasses.replace(state, n1=_scatter_add(state.n1, idx, -cnt))
 
 
 def point_estimate(state: SamplerState) -> torch.Tensor:

@@ -11,10 +11,16 @@ Counterpart of ``repro.core.thompson``.  Three samplers:
     with exhaustion encoded as an ``alpha < 0`` sentinel; the same choices
     as ``"wilson_hilferty"``.
 
+``choose_chunks_batched`` is the multi-query choice: Q keys and Q rows of
+statistics decided together, row q equal to ``choose_chunks`` on query q
+(``"pallas"`` in one launch of kernel B2).
+
 Divisions here are tensor by tensor: on CUDA, dividing by a Python scalar
 becomes a multiply by its reciprocal and can differ in the last bit.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -47,6 +53,8 @@ def draw_scores(key: torch.Tensor, state: SamplerState, *, cohorts: int = 1) -> 
     """Gamma Thompson draws, f32[cohorts, M], from a generator seeded by
     ``key`` (statistically equivalent to the reference, not bit-equal)."""
     alpha, beta = gamma_params(state)
+    # seeding reads the key to the host (a sync); "exact" is held only
+    # statistically and is off the measured path, which runs "pallas"
     words = key.tolist()
     gen = torch.Generator(device=alpha.device)
     gen.manual_seed((int(words[0]) << 32 | int(words[1])) & (2**63 - 1))
@@ -58,11 +66,19 @@ def draw_scores(key: torch.Tensor, state: SamplerState, *, cohorts: int = 1) -> 
 def draw_scores_wilson_hilferty(
     key: torch.Tensor, state: SamplerState, *, cohorts: int = 1
 ) -> torch.Tensor:
-    """Approximate Thompson draws via the WH transform, f32[cohorts, M]."""
+    """Approximate Thompson draws via the WH transform, f32[cohorts, M]
+    (f32[Q, cohorts, M] for Q keys and Q rows of statistics)."""
     alpha, beta = gamma_params(state)
-    z = prng.normal(key, (cohorts, alpha.shape[0]))
-    scores = wilson_hilferty(alpha[None, :], z) / beta[None, :]
-    return torch.where(state.exhausted()[None, :], torch.full_like(scores, -torch.inf), scores)
+    z = prng.normal(key, (cohorts, alpha.shape[-1]))
+    scores = wilson_hilferty(alpha[..., None, :], z) / beta[..., None, :]
+    return torch.where(state.exhausted()[..., None, :], torch.full_like(scores, -torch.inf), scores)
+
+
+def _kernel_inputs(key: torch.Tensor, state: SamplerState, cohorts: int):
+    """(alpha, beta, z) of the fused choice, exhaustion as alpha = -1."""
+    alpha, beta = gamma_params(state)
+    alpha = torch.where(state.exhausted(), torch.full_like(alpha, -1.0), alpha)
+    return alpha, beta, prng.normal(key, (cohorts, alpha.shape[-1]))
 
 
 def choose_chunks(
@@ -81,14 +97,44 @@ def choose_chunks(
         # deferred import: kernels.thompson.ref imports this module
         from repro_torch.kernels.thompson.ops import choose
 
-        alpha, beta = gamma_params(state)
-        alpha = torch.where(state.exhausted(), torch.full_like(alpha, -1.0), alpha)
-        z = prng.normal(key, (cohorts, alpha.shape[0]))
-        idx, _ = choose(alpha, beta, z)
+        idx, _ = choose(*_kernel_inputs(key, state, cohorts))
         return idx
     else:
         raise ValueError(f"unknown Thompson method: {method!r}")
     return _first_argmax(scores)
+
+
+def choose_chunks_batched(
+    keys: torch.Tensor,
+    state: SamplerState,
+    *,
+    cohorts: int = 1,
+    method: str = "exact",
+) -> torch.Tensor:
+    """Leading-[Q] ``choose_chunks``: keys int64[Q, 2] and statistics with
+    a leading [Q] on every field.  Returns i32[Q, cohorts]; row q equals
+    ``choose_chunks(keys[q], state_q)``.  An all-exhausted row gives -1
+    under ``"pallas"`` (the kernel's rule, ROADMAP C2) and 0 under the
+    other methods (argmax of an all-equal row)."""
+    if method == "exact":
+        # one generator per query, seeded from its key on the host: "exact"
+        # is held statistically and is off the measured path
+        return torch.stack([
+            choose_chunks(keys[q], _row(state, q), cohorts=cohorts, method=method)
+            for q in range(keys.shape[0])
+        ])
+    if method == "wilson_hilferty":
+        return _first_argmax(draw_scores_wilson_hilferty(keys, state, cohorts=cohorts))
+    if method == "pallas":
+        from repro_torch.kernels.thompson.ops import choose_batched
+
+        idx, _ = choose_batched(*_kernel_inputs(keys, state, cohorts))
+        return idx
+    raise ValueError(f"unknown Thompson method: {method!r}")
+
+
+def _row(state: SamplerState, q: int) -> SamplerState:
+    return dataclasses.replace(state, n1=state.n1[q], n=state.n[q], frames=state.frames[q])
 
 
 def greedy_chunks(state: SamplerState, *, cohorts: int = 1) -> torch.Tensor:

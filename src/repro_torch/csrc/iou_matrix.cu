@@ -19,6 +19,12 @@
 // 524 KB (0.2 us at 3.35 TB/s), with ~20 flops per output (2.6 MFLOP, 0.04
 // us at 67 TFLOP/s f32).  It is bound by launch latency; fusing the
 // matcher's gating and argmax into it is later work.
+//
+// The batched entry runs Q independent matrices in one launch (blockIdx.z
+// is the query: out[q] = IoU(a[q], b[q]) with the same per-element code),
+// for the multi-query matcher's one launch per cohort slot.  At (Q, D, R) =
+// (8, 16, 8192) it moves Q(16D + 16R + 4DR) = 5.24 MB, 1.57 us at 3.35
+// TB/s, again well under a launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,6 +38,9 @@ iou_matrix_kernel(const float4* __restrict__ a, const float4* __restrict__ b, in
   const int j = blockIdx.x * kTileR + threadIdx.x;
   const int i = blockIdx.y * kTileD + threadIdx.y;
   if (i >= d || j >= r) return;
+  a += static_cast<size_t>(blockIdx.z) * d;   // this query's matrices
+  b += static_cast<size_t>(blockIdx.z) * r;
+  out += static_cast<size_t>(blockIdx.z) * d * r;
   const float4 A = a[i];
   const float4 B = b[j];
   const float aw = fmaxf(__fsub_rn(A.z, A.x), 0.0f);
@@ -55,6 +64,18 @@ extern "C" int iou_matrix_f32(const float* a, const float* b, int d, int r, floa
   if (d <= 0 || r <= 0) return 0;
   const dim3 block(kTileR, kTileD);
   const dim3 grid((r + kTileR - 1) / kTileR, (d + kTileD - 1) / kTileD);
+  iou_matrix_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b), d, r, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a: f32[q, d, 4]; b: f32[q, r, 4], both 16-byte aligned; out: f32[q, d, r].
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int iou_matrix_batched_f32(const float* a, const float* b, int q, int d, int r,
+                                      float* out, void* stream) {
+  if (q <= 0 || d <= 0 || r <= 0) return 0;
+  const dim3 block(kTileR, kTileD);
+  const dim3 grid((r + kTileR - 1) / kTileR, (d + kTileD - 1) / kTileD, q);
   iou_matrix_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b), d, r, out);
   return static_cast<int>(cudaGetLastError());

@@ -1,14 +1,19 @@
 // Fused Wilson-Hilferty Thompson draw + per-cohort argmax for the ExSample
 // chunk choice.
 //
-// Replaces the TPU kernel src/repro/kernels/thompson/kernel.py::thompson_choose
-// (body _thompson_kernel): for cohort row c and chunk j
+// Replaces the TPU kernels src/repro/kernels/thompson/kernel.py::thompson_choose
+// (B1) and ::thompson_choose_batched (B2), which share the body
+// _thompson_kernel: for cohort row c and chunk j
 //     a     = max(alpha[j], 1e-6)
 //     draw  = a * max(1 - 1/(9a) + z[c,j]/(3*sqrt(a)), 0)^3 / max(beta[j], 1e-9)
 //     score = alpha[j] > 0 ? draw : -1e30          (alpha <= 0: exhausted)
 // and returns the first index of the row maximum with its value.  The TPU
 // kernel walks M in blocks in order (first index within a block, strict '>'
 // across blocks), so an all-exhausted row keeps its initial (-1, -1e30).
+//
+// B2 runs the same body over Q queries x C cohorts: Q*C rows in one launch,
+// row r reading query r / C's alpha/beta row and z row r.  B1 is the case
+// Q = 1.
 //
 // Design: one block per cohort row; threads stride over M keeping a private
 // (value, index) best in registers, then a warp-shuffle and shared-memory
@@ -24,7 +29,10 @@
 // C=50 rows and M=22 (dashcam) to 1,000 (bdd) chunks that is 4.6 KB to
 // 208 KB, under 0.1 us at 3.35 TB/s, and ~10 flops per element.  One
 // launch is therefore bound by launch latency, not by HBM or arithmetic;
-// the design keeps it to one launch per Thompson round.
+// the design keeps it to one launch per Thompson round.  B2 at the multi
+// path's (Q, C, M) = (8, 50, 1000) moves 8QM + 4QCM + 8QC = 1.67 MB (0.50
+// us at 3.35 TB/s; 14 flops per live element, 0.08 us at 67 TFLOP/s), so
+// it too is bound by the launch, once per multi-query round.
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,10 +49,13 @@ __device__ __forceinline__ void keep_better(float& bv, int& bi, float v, int i) 
 
 __global__ void __launch_bounds__(kThreads)
 thompson_choose_kernel(const float* __restrict__ alpha, const float* __restrict__ beta,
-                       const float* __restrict__ z, int m, int* __restrict__ idx,
-                       float* __restrict__ val) {
+                       const float* __restrict__ z, int rows_per_query, int m,
+                       int* __restrict__ idx, float* __restrict__ val) {
   const int row = blockIdx.x;
   const float* zr = z + static_cast<size_t>(row) * m;
+  const size_t q_off = static_cast<size_t>(row / rows_per_query) * m;   // this row's query
+  alpha += q_off;
+  beta += q_off;
   float bv = kNegInf;
   int bi = -1;
   for (int j = threadIdx.x; j < m; j += kThreads) {
@@ -97,6 +108,17 @@ extern "C" int thompson_choose_f32(const float* alpha, const float* beta, const 
                                    int c, int m, int* idx, float* val, void* stream) {
   if (c <= 0) return 0;
   thompson_choose_kernel<<<c, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      alpha, beta, z, m, idx, val);
+      alpha, beta, z, c, m, idx, val);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha, beta: f32[q, m]; z: f32[q, c, m] row-major; idx: i32[q, c];
+// val: f32[q, c].  Returns cudaGetLastError() after the launch.
+extern "C" int thompson_choose_batched_f32(const float* alpha, const float* beta,
+                                           const float* z, int q, int c, int m, int* idx,
+                                           float* val, void* stream) {
+  if (q <= 0 || c <= 0) return 0;
+  thompson_choose_kernel<<<q * c, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      alpha, beta, z, c, m, idx, val);
   return static_cast<int>(cudaGetLastError());
 }

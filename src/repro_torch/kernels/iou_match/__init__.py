@@ -1,1 +1,1 @@
-"""Pairwise IoU matrix for the matcher (kernel B3)."""
+"""Pairwise IoU matrix for the matcher (kernel B3, with a batched entry over queries)."""

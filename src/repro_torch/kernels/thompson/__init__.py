@@ -1,1 +1,1 @@
-"""Fused Wilson–Hilferty Thompson choice (kernel B1)."""
+"""Fused Wilson–Hilferty Thompson choice (kernels B1 and B2, its batch over queries)."""

@@ -1,16 +1,24 @@
-"""Search CLI: one ExSample distinct-object query, end to end, on the card.
+"""Search CLI: ExSample distinct-object queries, end to end, on the card.
 
-Counterpart of ``repro.launch.search`` for the single-query kinds:
+Counterpart of ``repro.launch.search`` for the ``host``, ``scan`` and
+``multi`` kinds:
 
   python -m repro_torch.launch.search --limit 50 --cohorts 16
   python -m repro_torch.launch.search --dataset bdd --scale 1.0 \\
       --plan '{"result_limit": 200, "max_steps": 5000, "cohorts": 50, "method": "pallas"}'
+  python -m repro_torch.launch.search --dataset bdd --scale 1.0 --queries 0 0 0 0 1 1 1 1 \\
+      --plan '{"queries": 8, "result_limit": 200, "max_steps": 2000, "cohorts": 50,
+               "method": "pallas", "execution": {"queries_axis": true, "cache": -1}}'
 
 ``--plan`` takes a ``SearchPlan.to_dict()`` JSON document (or ``@file``);
-the Thompson method goes inside it, as in the reference CLI.  Without it
-the plan is built from ``--limit``/``--max-steps``/``--cohorts``.
-``--device`` defaults to ``cuda`` and fails without a card; ``--device
-cpu`` runs the plain PyTorch versions of the kernels.
+the Thompson method and the detection cache go inside it, as in the
+reference CLI.  Without it the plan is a single query built from
+``--limit``/``--max-steps``/``--cohorts``.  A plan that lowers to ``multi``
+runs one query per class in ``--queries`` (default ``0..Q-1``) over one
+class-agnostic oracle, each query keeping its own class's detections,
+with the keys ``fold_in(PRNGKey(seed), q)``.  ``--device`` defaults to
+``cuda`` and fails without a card; ``--device cpu`` runs the plain
+PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -18,10 +26,19 @@ import argparse
 import json
 import time
 
+import torch
+
 from repro_torch.configs.exsample_paper import bdd, dashcam
-from repro_torch.core import SearchPlan, init_carry, init_matcher, init_state, prng
+from repro_torch.core import (
+    SearchPlan,
+    init_carry,
+    init_carry_multi,
+    init_matcher,
+    init_state,
+    prng,
+)
 from repro_torch.device import resolve
-from repro_torch.sim import generate, oracle_detect
+from repro_torch.sim import class_select, generate, oracle_detect
 from repro_torch.sim.costmodel import CostRates, sampling_cost
 
 MATCHER_CAPACITY = 8192
@@ -44,6 +61,9 @@ def main(argv=None) -> None:
     ap.add_argument("--dataset", default="dashcam", choices=["dashcam", "bdd"])
     ap.add_argument("--scale", type=float, default=0.2)
     ap.add_argument("--query-class", type=int, default=0)
+    ap.add_argument("--queries", type=int, nargs="+", default=None, metavar="CLASS",
+                    help="the class of each query of a --plan that lowers to multi "
+                         "(default 0..Q-1)")
     ap.add_argument("--limit", type=int, default=50)
     ap.add_argument("--cohorts", type=int, default=16)
     ap.add_argument("--max-steps", type=int, default=50_000)
@@ -51,29 +71,51 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve(args.device)
     plan = build_plan(args)
     lowered = plan.lower()
+    if args.queries and lowered.kind != "multi":
+        raise SystemExit("--queries needs a --plan that lowers to multi (queries_axis)")
+    device = resolve(args.device)
     setup = (dashcam if args.dataset == "dashcam" else bdd)(seed=args.seed, scale=args.scale)
     repo, chunks = generate(setup.repo, device=device)
     print(f"{args.dataset}: {chunks.total_frames:,} frames / {chunks.num_chunks} chunks / "
           f"{repo.num_instances} instances on {device}")
     print(f"plan: lowering={lowered.kind} method={lowered.method} {json.dumps(plan.to_dict())}")
 
-    def det(key, frame):
-        return oracle_detect(repo, frame, query_class=args.query_class)
+    sampler = init_state(chunks.length, device=device)
+    matcher = init_matcher(max_results=MATCHER_CAPACITY, device=device)
+    select = None
+    if lowered.kind == "multi":
+        classes = args.queries if args.queries else list(range(plan.queries))
+        if len(classes) != plan.queries:
+            raise SystemExit(f"--queries lists {len(classes)} classes for a {plan.queries}-query plan")
 
-    carry = init_carry(init_state(chunks.length, device=device),
-                       init_matcher(max_results=MATCHER_CAPACITY, device=device),
-                       prng.PRNGKey(args.seed, device=device))
+        def det(keys, frames):
+            return oracle_detect(repo, frames, query_class=None)
+
+        select = class_select(repo, classes)
+        key = prng.PRNGKey(args.seed, device=device)
+        carry = init_carry_multi(sampler, matcher,
+                                 torch.stack([prng.fold_in(key, q) for q in range(plan.queries)]))
+    else:
+        def det(key, frame):
+            return oracle_detect(repo, frame, query_class=args.query_class)
+
+        carry = init_carry(sampler, matcher, prng.PRNGKey(args.seed, device=device))
     t0 = time.perf_counter()
-    res = lowered.run(carry, chunks, detector=det)
+    res = lowered.run(carry, chunks, detector=det, select=select)
     wall = time.perf_counter() - t0
     st = res.stats
+    if res.num_queries > 1:
+        for q in range(res.num_queries):
+            print(f"  query {q}: {res.results[q]} results / {res.steps[q]:,} frames")
     cost = sampling_cost(st.detector_invocations, CostRates())
-    print(f"ExSample[{res.kind}]: {sum(res.results)} results / {st.frames_sampled:,} frames "
-          f"sampled / {st.detector_invocations:,} detector invocations / est. "
-          f"{cost.total_s:.0f} gpu·s (driver wall {wall:.1f}s, "
+    line = (f"ExSample[{res.kind}]: {sum(res.results)} results / {st.frames_sampled:,} frames "
+            f"sampled / {st.detector_invocations:,} detector invocations")
+    if res.kind == "multi":
+        line += (f" ({st.cache_hits:,} cache hits, hit rate {st.cache_hit_rate:.2f}, "
+                 f"{st.amortization:.2f}x amortization, {st.rounds} rounds)")
+    print(line + f" / est. {cost.total_s:.0f} gpu·s (driver wall {wall:.1f}s, "
           f"{st.frames_sampled / max(wall, 1e-9):.0f} frames/s)")
 
 

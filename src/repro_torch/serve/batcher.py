@@ -1,0 +1,109 @@
+"""Device-side dedup and detection cache of the multi-query driver.
+
+Counterpart of the device half of ``repro.serve.batcher``
+(``dedup_first_index``, ``DetectionCache``, ``init_detection_cache``,
+``cache_lookup``, ``cache_insert``).  Detections are any tree of tensors
+the port's detectors return (a ``Detections`` NamedTuple, or a dict),
+each leaf with a leading batch axis.
+
+One difference in form: the reference's ``cache_insert`` returns a new
+cache; the port updates the cache's tensors in place and returns the
+same object, because a repository-sized cache (``cache=-1``) holds about
+1 GB at the paper's full-size datasets, too much to copy every round.
+For the same reason every tensor of the cache keeps one row past its
+capacity: the scratch row that absorbs the writes ``cache_insert``
+drops (see there).  Lookups never reach it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the tensor leaves of a NamedTuple, tuple, dict or a
+    single tensor, with the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
+
+
+def dedup_first_index(frame_ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """i32[B] — for each slot, the index of the first valid slot holding
+    the same frame id (its representative); invalid slots map to
+    themselves.  So every valid slot gathers detections of exactly its own
+    frame, and ``first_idx[i] == i`` marks one representative per distinct
+    valid frame.  O(B²) compare; B = Q·C cohort slots."""
+    b = frame_ids.shape[0]
+    idx = torch.arange(b, dtype=torch.int32, device=frame_ids.device)
+    same = (frame_ids[:, None] == frame_ids[None, :]) & valid[None, :]
+    first = torch.where(same, idx[None, :], torch.full_like(same, b, dtype=torch.int32)).amin(dim=1)
+    return torch.where(valid & (first < b), first, idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionCache:
+    """Direct-mapped cache of raw detector output on the device.
+
+    ``tag[s]`` holds the frame id cached in slot ``s`` (-1 = empty);
+    ``store`` is the detector's output tree with a leading slot axis.
+    Frames map to slots by ``frame % capacity``, so a capacity of at least
+    the repository's frame count is exact.  Every tensor has
+    ``capacity + 1`` rows; the last is ``cache_insert``'s scratch row.
+    """
+
+    tag: torch.Tensor   # i32[S + 1] — cached frame id, -1 = empty
+    store: Any          # detection tree, each leaf [S + 1, ...]
+
+    @property
+    def capacity(self) -> int:
+        return self.tag.shape[0] - 1
+
+
+def init_detection_cache(det_struct: Any, capacity: int, device=None) -> DetectionCache:
+    """Empty cache for a detector whose single-frame output looks like
+    ``det_struct`` (a tree of tensors; only their shape, dtype and, unless
+    ``device`` is given, device are read).  Allocated once, at full size."""
+    if device is None:
+        leaves = []
+        tree_map(leaves.append, det_struct)
+        device = leaves[0].device
+    store = tree_map(lambda s: torch.zeros((capacity + 1,) + tuple(s.shape), dtype=s.dtype,
+                                           device=device), det_struct)
+    return DetectionCache(tag=torch.full((capacity + 1,), -1, dtype=torch.int32, device=device),
+                          store=store)
+
+
+def cache_lookup(cache: DetectionCache, frame_ids: torch.Tensor):
+    """(hit bool[B], detections tree with leading [B]) for each frame.
+    Sentinel slots (``frame_ids < 0``) never hit: -1 maps to slot
+    capacity-1 and would otherwise equal an empty slot's tag -1."""
+    slot = torch.remainder(frame_ids, cache.capacity).long()
+    hit = (frame_ids >= 0) & (cache.tag[slot] == frame_ids)
+    return hit, tree_map(lambda x: x[slot], cache.store)
+
+
+def cache_insert(cache: DetectionCache, frame_ids: torch.Tensor, dets: Any,
+                 mask: torch.Tensor) -> DetectionCache:
+    """Insert ``dets`` (leading [B]) for the masked frames, in place.
+
+    When two masked frames collide on one slot within a batch the first
+    wins (``dedup_first_index`` over slots).  Every other write, and every
+    sentinel frame (``frame_ids < 0``, which never inserts whatever
+    ``mask`` says), goes to the scratch row ``capacity``: so no slot is
+    written twice and no write's winner is left to the device's scatter
+    order, which CUDA leaves unspecified."""
+    s = cache.capacity
+    slot = torch.remainder(frame_ids, s).long()
+    valid = mask & (frame_ids >= 0)
+    first = dedup_first_index(slot, valid)
+    keep = valid & (first == torch.arange(slot.shape[0], dtype=torch.int32, device=slot.device))
+    tgt = torch.where(keep, slot, torch.full_like(slot, s))
+    cache.tag[tgt] = frame_ids.to(cache.tag.dtype)
+    tree_map(lambda st, v: st.__setitem__(tgt, v.to(st.dtype)), cache.store, dets)
+    return cache

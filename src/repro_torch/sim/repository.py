@@ -123,5 +123,7 @@ def generate(spec: RepoSpec, *, device: str | torch.device | None = None) -> tup
 
 
 def instances_visible(repo: Repository, frame) -> torch.Tensor:
-    """bool[N] — ground-truth visibility of each instance in ``frame``."""
+    """bool[N] — ground-truth visibility of each instance in ``frame``; a
+    batch of frames ``[B]`` gives bool[B, N]."""
+    frame = torch.as_tensor(frame, device=repo.inst_start.device)[..., None]
     return (repo.inst_start <= frame) & (frame < repo.inst_end)

@@ -10,6 +10,7 @@ import torch
 from repro.core import chunks as jchunks
 from repro.core import state as jstate
 from repro_torch.core import chunks as tchunks
+from repro_torch.core.matcher import broadcast_leading
 from repro_torch.core import state as tstate
 
 LENGTHS = [
@@ -96,3 +97,35 @@ def test_apply_update_scalar_form():
     ts = tstate.apply_update(tstate.init_state([5, 5, 5], device="cpu"), torch.tensor(1), 3, 1)
     np.testing.assert_array_equal(ts.n1.numpy(), np.asarray(js.n1))
     np.testing.assert_array_equal(ts.n.numpy(), np.asarray(js.n))
+
+
+def test_batched_updates_equal_the_reference_vmap():
+    """[Q, M] statistics: one chunk per query scatters at q·M + j, gated by
+    ``samples`` (0 for a finished query), as the reference's vmapped fold
+    does; no query's delta lands in another's row."""
+    rng = np.random.default_rng(1)
+    q_n, m, r = 4, 12, 6
+    frames = rng.integers(1, 40, m).astype(np.int32)
+    js = jax.tree.map(lambda x: jnp.broadcast_to(x, (q_n,) + x.shape), jstate.init_state(frames))
+    ts = broadcast_leading(tstate.init_state(frames, device="cpu"), q_n)
+
+    def jstep(s, idx, d0, d1, act, home, cnt):
+        s = jstate.apply_update(s, idx, d0, d1, samples=act)
+        return jstate.apply_cross_chunk_decrement(s, home, cnt)
+
+    for _ in range(15):
+        idx = rng.integers(0, m, q_n).astype(np.int32)
+        idx[:2] = idx[0]                                        # two queries, one chunk
+        d0 = rng.integers(0, 4, q_n).astype(np.int32)
+        d1 = rng.integers(0, 3, q_n).astype(np.int32)
+        act = (rng.random(q_n) < 0.8).astype(np.float32)
+        home = rng.integers(0, m, (q_n, r)).astype(np.int32)
+        cnt = rng.integers(0, 2, (q_n, r)).astype(np.float32)
+        js = jax.vmap(jstep)(js, *(jnp.asarray(x) for x in (idx, d0, d1, act, home, cnt)))
+        ts = tstate.apply_update(ts, torch.from_numpy(idx), torch.from_numpy(d0), torch.from_numpy(d1),
+                                 samples=torch.from_numpy(act))
+        ts = tstate.apply_cross_chunk_decrement(ts, torch.from_numpy(home), torch.from_numpy(cnt))
+    np.testing.assert_array_equal(ts.n1.numpy(), np.asarray(js.n1))
+    np.testing.assert_array_equal(ts.n.numpy(), np.asarray(js.n))
+    np.testing.assert_array_equal(ts.exhausted().numpy(), np.asarray(js.exhausted()))
+    assert ts.num_chunks == m

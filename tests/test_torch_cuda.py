@@ -9,9 +9,9 @@ Without a card they skip (the kernels have no CPU mode).
 import pytest
 import torch
 
-from repro_torch.kernels.iou_match.kernel import iou_matrix
+from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
 from repro_torch.kernels.iou_match.ref import iou_ref
-from repro_torch.kernels.thompson.kernel import thompson_choose
+from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
 from repro_torch.kernels.thompson.ref import thompson_ref
 
 pytestmark = pytest.mark.cuda
@@ -50,15 +50,47 @@ def test_thompson_kernel_all_exhausted(card):
     assert torch.equal(kv, torch.full((4,), -1e30, dtype=torch.float32, device=card))
 
 
+@pytest.mark.parametrize("q,c,m", [(8, 50, 22), (8, 50, 1000), (3, 7, 1025), (1, 1, 1)])
+def test_thompson_batched_kernel_equals_plain(card, q, c, m):
+    g = torch.Generator().manual_seed(q * 100000 + c * 1000 + m)
+    alpha = torch.rand(q, m, generator=g) * 20 + 0.05
+    alpha[torch.rand(q, m, generator=g) < 0.3] = -1.0
+    alpha[-1] = -1.0                                  # one query with every chunk exhausted
+    beta = torch.rand(q, m, generator=g) * 300 + 1
+    z = torch.randn(q, c, m, generator=g)
+    alpha, beta, z = alpha.to(card), beta.to(card), z.to(card)
+    before = thompson_choose_batched.launches
+    ki, kv = thompson_choose_batched(alpha, beta, z)
+    ri, rv = thompson_ref(alpha, beta, z)
+    assert thompson_choose_batched.launches == before + 1
+    assert torch.equal(ki, ri) and torch.equal(_bits(kv), _bits(rv))
+    assert ki[-1].tolist() == [-1] * c
+    for i in range(q):
+        bi, bv = thompson_choose(alpha[i].contiguous(), beta[i].contiguous(), z[i].contiguous())
+        assert torch.equal(ki[i], bi) and torch.equal(_bits(kv[i]), _bits(bv))
+
+
+def _boxes(g, card, *shape):
+    xy = torch.rand(*shape, 2, generator=g) * 0.7
+    b = torch.cat([xy, xy + torch.rand(*shape, 2, generator=g) * 0.2], -1)
+    b[torch.rand(*shape, generator=g) < 0.2] = 0.0
+    return b.to(card)
+
+
 @pytest.mark.parametrize("d,r", [(16, 8192), (13, 1000), (1, 1), (40, 77)])
 def test_iou_kernel_equals_plain(card, d, r):
     g = torch.Generator().manual_seed(d * 1000 + r)
-
-    def boxes(k):
-        xy = torch.rand(k, 2, generator=g) * 0.7
-        b = torch.cat([xy, xy + torch.rand(k, 2, generator=g) * 0.2], 1)
-        b[torch.rand(k, generator=g) < 0.2] = 0.0
-        return b.to(card)
-
-    a, b = boxes(d), boxes(r)
+    a, b = _boxes(g, card, d), _boxes(g, card, r)
     assert torch.equal(_bits(iou_matrix(a, b)), _bits(iou_ref(a, b)))
+
+
+@pytest.mark.parametrize("q,d,r", [(8, 16, 8192), (3, 13, 1000), (2, 1, 1), (4, 40, 77)])
+def test_iou_batched_kernel_equals_plain_and_the_2d_kernel(card, q, d, r):
+    g = torch.Generator().manual_seed(q * 100000 + d * 1000 + r)
+    a, b = _boxes(g, card, q, d), _boxes(g, card, q, r)
+    before = iou_matrix_batched.launches
+    out = iou_matrix_batched(a, b)
+    assert iou_matrix_batched.launches == before + 1
+    assert torch.equal(_bits(out), _bits(iou_ref(a, b)))
+    for i in range(q):
+        assert torch.equal(_bits(out[i]), _bits(iou_matrix(a[i].contiguous(), b[i].contiguous())))

@@ -40,6 +40,8 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 
 
 def test_no_jax_or_reference_imports_in_the_source():
+    scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
+    assert {"core", "kernels", "serve", "sim", "launch"} <= scanned
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -66,6 +68,9 @@ def test_entry_points_default_to_the_card():
         resolve()
     with pytest.raises(RuntimeError, match="cuda"):
         search.main(["--scale", "0.02", "--max-steps", "8"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        search.main(["--scale", "0.02", "--queries", "0", "1", "--plan",
+                     '{"queries": 2, "max_steps": 8, "execution": {"queries_axis": true}}'])
     assert resolve("cpu").type == "cpu"
 
 
@@ -76,3 +81,16 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
                  "--plan", '{"result_limit": 3, "max_steps": 64, "cohorts": 8, "method": "pallas"}'])
     out = capsys.readouterr().out
     assert "lowering=scan method=pallas" in out and "ExSample[scan]" in out
+
+
+def test_multi_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import search
+
+    search.main(["--device", "cpu", "--scale", "0.02", "--queries", "7", "3", "7",
+                 "--plan", '{"queries": 3, "result_limit": 3, "max_steps": 64, "cohorts": 8, '
+                           '"method": "pallas", "execution": {"queries_axis": true, "cache": -1}}'])
+    out = capsys.readouterr().out
+    assert "lowering=multi method=pallas" in out and "ExSample[multi]" in out
+    assert "query 2:" in out and "cache hits" in out and "amortization" in out
+    with pytest.raises(SystemExit, match="--queries needs a --plan"):
+        search.main(["--device", "cpu", "--scale", "0.02", "--queries", "0", "1"])

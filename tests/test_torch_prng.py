@@ -103,3 +103,24 @@ def test_log1p_matches_xla_cpu():
     ref = np.asarray(jax.jit(jnp.log1p)(x))
     got = prng._xla_log1p_f32(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_batched_keys_equal_their_rows_and_jax_vmap():
+    """A leading [Q] key axis: row q equals the single-key call bit for bit,
+    and the whole equals ``jax.vmap`` of the reference."""
+    jkeys = jnp.stack([jax.random.fold_in(jax.random.PRNGKey(0), q) for q in range(5)])
+    tkeys = torch.stack([prng.fold_in(prng.PRNGKey(0, device="cpu"), q) for q in range(5)])
+    np.testing.assert_array_equal(_u32(tkeys), np.asarray(jkeys))
+    np.testing.assert_array_equal(_u32(prng.split(tkeys, 3)), np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(jkeys)))
+    np.testing.assert_array_equal(_u32(prng.fold_in(tkeys, 9)),
+                                  np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 9))(jkeys)))
+    np.testing.assert_array_equal(_u32(prng.random_bits(tkeys, (3, 7))),
+                                  np.asarray(jax.vmap(lambda k: jax.random.bits(k, (3, 7)))(jkeys)))
+    z = prng.normal(tkeys, (50, 22))
+    assert z.shape == (5, 50, 22)
+    ref = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.normal(k, (50, 22))))(jkeys))
+    np.testing.assert_array_equal(z.numpy().view(np.int32), ref.view(np.int32))
+    for q in range(5):
+        assert torch.equal(prng.split(tkeys, 3)[q], prng.split(tkeys[q], 3))
+        assert torch.equal(prng.fold_in(tkeys, 9)[q], prng.fold_in(tkeys[q], 9))
+        assert torch.equal(z[q].view(torch.int32), prng.normal(tkeys[q], (50, 22)).view(torch.int32))

@@ -82,11 +82,13 @@ def test_search_matches_reference_exactly(repos, kind, cohorts, method):
 def test_plan_resolution_and_unported_kinds_raise():
     for d in (dict(), dict(method="pallas"), dict(execution=dict(strategy="host")),
               dict(queries=2), dict(cohorts=2, execution=dict(shards=2)),
+              dict(queries=2, cohorts=2, execution=dict(shards=2)),
+              dict(queries=2, execution=dict(async_workers=2)),
               dict(execution=dict(async_workers=2))):
         jp, tp = jcore.SearchPlan.from_dict(d), tcore.SearchPlan.from_dict(d)
         assert jp.resolve() == tp.resolve()
         assert jp.to_dict() == tp.to_dict()
-        if tp.resolve()[0] in ("host", "scan"):
+        if tp.resolve()[0] in ("host", "scan", "multi"):
             assert tp.lower().kind == jp.lower().kind
         else:
             with pytest.raises(tcore.PlanCompatibilityError, match="does not run yet"):

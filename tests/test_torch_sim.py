@@ -77,3 +77,38 @@ def test_sampling_cost_matches_reference():
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert tcost.CostRates.from_backbone(1e12) == tcost.CostRates(**dataclasses.asdict(
         jcost.CostRates.from_backbone(1e12)))
+
+
+@pytest.mark.parametrize("query_class", [1, None])
+def test_oracle_detect_on_a_batch_of_frames(query_class):
+    """The multi-query detector protocol: a batch of frames [B] gives
+    detections with a leading [B], each row the single frame's."""
+    (jr, _), (tr, _) = _pair(5)
+    frames = np.array([0, 3, 3, 250, 777, jr.total_frames - 1], np.int64)
+    ref = jax.jit(jax.vmap(lambda f: joracle.oracle_detect(jr, f, query_class=query_class)))(
+        jnp.asarray(frames, jnp.int32))
+    got = toracle.oracle_detect(tr, torch.from_numpy(frames), query_class=query_class)
+    for name in ("boxes", "feats", "valid", "inst_id"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)), err_msg=name)
+        one = getattr(toracle.oracle_detect(tr, torch.tensor(777), query_class=query_class), name)
+        assert torch.equal(getattr(got, name)[4], one)
+
+
+def test_class_select_and_filter_class_match_reference():
+    (jr, _), (tr, _) = _pair(2)
+    frames = np.arange(0, jr.total_frames, 7, dtype=np.int64)[:12]
+    classes = [0, 2, 1, 0]
+    jdets = jax.vmap(lambda f: joracle.oracle_detect(jr, f, query_class=None))(jnp.asarray(frames[:4], jnp.int32))
+    tdets = toracle.oracle_detect(tr, torch.from_numpy(frames[:4]), query_class=None)
+    jsel = joracle.class_select(jr, classes)
+    want = jax.vmap(jsel)(jnp.arange(4, dtype=jnp.int32), jdets)
+    got = toracle.class_select(tr, classes)(torch.arange(4, dtype=torch.int32), tdets)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for cls in (0, 1, 2):
+        one = toracle.filter_class(tr, toracle.oracle_detect(tr, torch.from_numpy(frames), query_class=None), cls)
+        per = toracle.oracle_detect(tr, torch.from_numpy(frames), query_class=cls)
+        for f in range(len(frames)):
+            jref = joracle.filter_class(jr, joracle.oracle_detect(jr, jnp.int32(frames[f]), query_class=None), cls)
+            np.testing.assert_array_equal(one.valid[f].numpy(), np.asarray(jref.valid))
+        # the valid detections of a filtered detect-all pass are the class's own
+        assert torch.equal(one.valid.sum(-1), per.valid.sum(-1))
