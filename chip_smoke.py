@@ -1,7 +1,9 @@
 """Chip smoke for repro_torch: build the CUDA kernels, check each against its
 plain PyTorch version on the card, drive the full-size scan search and the
 full-width multi-query search on the card and hold each against the same
-search on the CPU.
+search on the CPU, then serve the full-width phi3-medium-14b LM (prefill
+through kernel B4, greedy decode through kernel B5) and hold its decode to
+teacher forcing, and the reduced LM on the card to the same on the CPU.
 
     python3 chip_smoke.py
 
@@ -29,6 +31,7 @@ SRC = ROOT / "src"
 # (non-tensor-core) rate, used for each kernel's lower-bound time.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12          # dense tensor-core rate
 
 MAIN_PLAN = dict(result_limit=200, max_steps=5000, cohorts=50, method="pallas", trace_every=256)
 HOST_CHECK_PLAN = dict(result_limit=40, max_steps=400, cohorts=8, method="pallas", trace_every=64)
@@ -40,6 +43,36 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   method="pallas", trace_every=256,
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
+# the LM serving path: phi3-medium-14b at full width in the launcher's
+# float32, 4 requests of a 2,048-token prompt, 64 greedy tokens each
+SERVE_ARCH = "phi3-medium-14b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 64
+# B4/B5 against their plain versions, element by element: float32 within
+# 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
+# 2^-7·|ref|: both sides compute in float32 and round once) and never
+# above 2e-2
+ATTN_ATOL, ATTN_CAP = 1e-4, 2e-2
+ATTN_RTOL = {"float32": 0.0, "bfloat16": 8e-3}
+# (B, S, T, H, KV, d, dtype, causal); the first is the serve path's prefill
+B4_SHAPES = (
+    (4, 2048, 2048, 40, 10, 128, "float32", True),
+    (1, 2048, 2048, 40, 10, 128, "float32", True),
+    (1, 2048, 2048, 40, 10, 128, "bfloat16", True),
+    (1, 8192, 8192, 40, 10, 128, "bfloat16", True),
+    (1, 2048, 2048, 16, 16, 256, "float32", True),       # gemma-7b's heads
+    (1, 1000, 1000, 40, 10, 128, "float32", True),       # ragged
+    (1, 1000, 1000, 40, 10, 128, "float32", False),
+    (1, 256, 1024, 40, 10, 128, "float32", True),        # S != T: the top-left rule
+)
+# (B, H, KV, d, T, dtype, cache_len per sequence); the first is the serve
+# path's last decode step (64 tokens in a cache of 2048 + 64 + 1)
+B5_SHAPES = (
+    (4, 40, 10, 128, 2113, "float32", (64,) * 4),
+    (8, 40, 10, 128, 32768, "float32", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
+    (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
+    (4, 48, 1, 128, 8192, "float32", (0, 1, 8192, 3000)),     # granite-20b's MQA group
+    (4, 16, 16, 256, 8192, "float32", (0, 1, 8192, 3000)),    # gemma-7b
+)
 
 
 def fail(msg: str) -> None:
@@ -65,11 +98,14 @@ def median_ms(fn, *, inner: int = 20, reps: int = 7) -> float:
 
 def device_events(prof):
     """The device-side activities (kernels, copies, fills) of a profile,
-    without the device-timeline copies of ``record_function`` ranges."""
+    without the device-timeline copies of ``record_function`` ranges and
+    CUPTI's "Command Buffer Full" (the host waiting on a full launch
+    queue, not device work)."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and not e.name.startswith("exsample.")]
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("exsample.", "serve.")) and e.name != "Command Buffer Full"]
 
 
 def device_ms(fn, *, n: int = 50) -> float | None:
@@ -154,24 +190,34 @@ def thompson_batched_inputs(q: int, c: int, m: int, seed: int):
     return tuple(torch.stack([r[k] for r in rows]).contiguous() for k in range(3))
 
 
-def timed_row(kernel, plain, **row) -> dict:
-    """Device time per call (profiler) of the kernel and of its plain
-    version, and their host-inclusive time per call (CUDA events around a
-    loop of calls, which the host's launch rate bounds for small kernels)."""
-    row.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
-               call_ms=median_ms(kernel), plain_call_ms=median_ms(plain))
+def timed_row(kernel, plain, *, library=None, n=50, inner=20, reps=7, ops_per_s=F32_OPS_PER_S,
+              **row) -> dict:
+    """Device time per call (profiler, mean of ``n``) of the kernel, of its
+    plain version and of the one PyTorch call that computes the same
+    function (``library``, where there is one), and the host-inclusive
+    time per call of the first two (CUDA events around ``inner`` calls,
+    median of ``reps``; the host's launch rate bounds it for small
+    kernels).  The bound is the larger of the bytes over HBM's rate and the
+    operations over ``ops_per_s``."""
+    row.update(ms=device_ms(kernel, n=n), plain_ms=device_ms(plain, n=n),
+               call_ms=median_ms(kernel, inner=inner, reps=reps),
+               plain_call_ms=median_ms(plain, inner=inner, reps=reps),
+               library_ms=None if library is None else device_ms(library, n=n))
     if row["ms"] is None or row["plain_ms"] is None:
         print("    (profiler recorded no device time: ms falls back to CUDA events)")
         row["ms"] = row["ms"] or row["call_ms"]
         row["plain_ms"] = row["plain_ms"] or row["plain_call_ms"]
+    if library is not None and row["library_ms"] is None:
+        row["library_ms"] = median_ms(library, inner=inner, reps=reps)
     t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = row["ops"] / F32_OPS_PER_S * 1e3
+    t_ops = row["ops"] / ops_per_s * 1e3
     row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     return row
 
 
 def describe(row) -> str:
-    return (f"device {row['ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.2f} us), "
+    lib = "" if row.get("library_ms") is None else f", library {row['library_ms'] * 1e3:.2f} us"
+    return (f"device {row['ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.2f} us{lib}), "
             f"per call with launch {row['call_ms'] * 1e3:.1f} us (plain {row['plain_call_ms'] * 1e3:.1f} us), "
             f"bound {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}, {row['bytes']} B")
 
@@ -272,15 +318,147 @@ def check_batched_kernels(torch, rows) -> None:
               f"per slice; " + describe(row))
 
 
+def sdpa_backend(fn) -> tuple[str, list[str]]:
+    """Which backend ``scaled_dot_product_attention`` ran, read from the
+    names of the device kernels of one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in device_events(prof)})
+    low = " ".join(names).lower()
+    for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                       ("mem_eff", "efficient"), ("efficient", "efficient")):
+        if key in low:
+            return label, names
+    return "math", names
+
+
+def visible_pairs(s: int, t: int, causal: bool) -> int:
+    """(row, column) pairs the top-left causal rule leaves live."""
+    if not causal:
+        return s * t
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def attn_compare(out, ref, dtype: str) -> tuple:
+    """(max |out - ref|, mean |ref|, largest |out - ref| / limit), the limit
+    being ATTN_ATOL + ATTN_RTOL·|ref| capped at ATTN_CAP, per element."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    limit = (ATTN_ATOL + ATTN_RTOL[dtype] * mag).clamp(max=ATTN_CAP)
+    return float(diff.max()), float(mag.mean()), float((diff / limit).max())
+
+
+def check_attention_kernels(torch, rows) -> None:
+    """B4 and B5 against their plain versions on the card (float32 within
+    1e-4; bfloat16 within about one bf16 ulp, see ATTN_RTOL), timed beside
+    SDPA, the PyTorch call that computes the same function (never used by
+    the port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode.kernel import flash_decode
+    from repro_torch.kernels.flash_decode.ref import decode_ref
+
+    def randn(g, shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dtype))
+
+    for b, s, t, h, kv, d, dtype, causal in B4_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * s + t + h + d)
+        q, k, v = randn(g, (b, s, h, d), dtype), randn(g, (b, t, kv, d), dtype), randn(g, (b, t, kv, d), dtype)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, mag, worst = attn_compare(out, ref, dtype)
+        if not worst <= 1.0:
+            fail(f"flash_attention != plain at {(b, s, t, h, kv, d, dtype, causal)}: max |diff| {err}, "
+                 f"mean |ref| {mag}, largest |diff| / limit {worst}")
+        del out, ref
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        backend, names = sdpa_backend(library)
+        ops = 4 * d * visible_pairs(s, t, causal) * b * h
+        big = ops > 5e10
+        row = timed_row(lambda: flash_attention(q, k, v, causal=causal),
+                        lambda: attention_ref(q, k, v, causal=causal), library=library,
+                        n=3 if big else 20, inner=2 if big else 10, reps=3 if big else 5,
+                        ops_per_s=F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S,
+                        shape=[b, s, t, h, kv, d], dtype=dtype, causal=causal,
+                        bytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(), ops=ops,
+                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend)
+        rows[("flash_attention", b, s, t, h, kv, d, dtype, causal)] = row
+        print(f"  flash_attention (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {dtype} "
+              f"{'causal' if causal else 'full'}: max |diff| {err:.3g} (mean |ref| {mag:.3g}, "
+              f"largest |diff| / limit {worst:.3g}); " + describe(row)
+              + f"; SDPA backend {backend} ({', '.join(n[:60] for n in names[:3])})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    for b, h, kv, d, t, dtype, lens in B5_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * h + kv + d + t)
+        q, kc, vc = randn(g, (b, h, d), dtype), randn(g, (b, t, kv, d), dtype), randn(g, (b, t, kv, d), dtype)
+        cache_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = flash_decode(q, kc, vc, cache_len)
+        ref = decode_ref(q, kc, vc, cache_len)
+        torch.cuda.synchronize()
+        err, mag, worst = attn_compare(out, ref, dtype)
+        if not worst <= 1.0:
+            fail(f"flash_decode != plain at {(b, h, kv, d, t, dtype, lens)}: max |diff| {err}, "
+                 f"mean |ref| {mag}, largest |diff| / limit {worst}")
+        for i, n in enumerate(lens):
+            if n == 0:       # an empty cache gives the mean of V over all T, as the reference
+                mean = vc[i].float().mean(dim=0).repeat_interleave(h // kv, dim=0).to(out.dtype)
+                if not attn_compare(out[i], mean, dtype)[2] <= 1.0:
+                    fail(f"flash_decode with cache_len 0 is not the mean of V at {(b, h, kv, d, t)}")
+        del out, ref
+        q4 = q[:, :, None, :].contiguous()
+        kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        mask = (torch.arange(t, device="cuda")[None, :] < cache_len[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        backend, names = sdpa_backend(library)
+        live = sum(t if n <= 0 else min(n, t) for n in lens)
+        es = q.element_size()
+        row = timed_row(lambda: flash_decode(q, kc, vc, cache_len),
+                        lambda: decode_ref(q, kc, vc, cache_len), library=library,
+                        n=20, inner=10, reps=5,
+                        ops_per_s=F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S,
+                        shape=[b, h, kv, d, t], dtype=dtype, cache_len=list(lens),
+                        bytes=2 * q.numel() * es + 2 * live * kv * d * es, ops=4 * d * h * live,
+                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend)
+        rows[("flash_decode", b, h, kv, d, t, dtype)] = row
+        print(f"  flash_decode (B,H,KV,d,T)=({b},{h},{kv},{d},{t}) {dtype} cache_len {list(lens)}: "
+              f"max |diff| {err:.3g} (mean |ref| {mag:.3g}, largest |diff| / limit {worst:.3g}); "
+              + describe(row)
+              + f"; SDPA backend {backend} ({', '.join(n[:60] for n in names[:3])})")
+        del q, kc, vc, q4, kt, vt
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- main path
 
 def kernel_fns() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
     from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
 
     return {"thompson_choose": thompson_choose, "thompson_choose_batched": thompson_choose_batched,
-            "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched}
+            "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
+            "flash_attention": flash_attention, "flash_decode": flash_decode}
 
 
 def reset_launches() -> None:
@@ -544,6 +722,167 @@ def per_query_contract(torch, name, setup) -> None:
           f"8 solo runs in {solo_s:.2f} s")
 
 
+# ------------------------------------------------------------ serve path
+
+def device_share(prof, range_name: str, kernel_key: str) -> dict:
+    """Inside the host span of the ``range_name`` range: the device's busy
+    time and idle share, the busy time of kernels whose name holds
+    ``kernel_key`` and of the cuBLAS products (names holding "gemm" or
+    "gemv"), and the runtime calls that launch or wait."""
+    from torch.autograd import DeviceType
+
+    span = [e for e in prof.events() if e.name == range_name and e.device_type == DeviceType.CPU][0]
+    lo, hi = span.time_range.start, span.time_range.end
+    busy = key = gemm = 0.0
+    for e in device_events(prof):
+        overlap = max(0, min(e.time_range.end, hi) - max(e.time_range.start, lo))
+        busy += overlap
+        if kernel_key in e.name:
+            key += overlap
+        elif "gemm" in e.name or "gemv" in e.name:
+            gemm += overlap
+    inside = [e for e in prof.events() if e.device_type == DeviceType.CPU
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    calls = {name: sum(e.name == name for e in inside)
+             for name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
+                          "cudaMemcpyAsync")}
+    return {"span_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3, "idle": 1 - busy / (hi - lo),
+            "kernel_ms": key / 1e3, "kernel_share": key / busy if busy else 0.0,
+            "gemm_ms": gemm / 1e3, "calls": calls}
+
+
+def serve_path(torch) -> tuple[dict, dict]:
+    """The full-width LM serving path through the launcher's functions:
+    prefill (B4 once per layer), greedy decode (B5 once per layer and
+    token), a teacher-forcing check of every decode step against the full
+    forward over the fed tokens, and a profile of one prefill and one
+    decode step.  Frees the weights before it returns."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import forward_lm, init_params
+
+    cuda = torch.device("cuda")
+    run = launcher.RUN
+    cfg = launcher.model_config(SERVE_ARCH, reduced=False, device=cuda)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, vocab {cfg.vocab}: {n_params:,} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB float32), made on the card in {time.perf_counter() - t0:.2f} s")
+    # warm the card's lazily loaded kernels (cuBLAS' heuristics) outside the timed run
+    launcher.serve(params, cfg, run, launcher.make_prompt(cfg, SERVE_BATCH, 128, cuda), 2)
+    batch = launcher.make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, cuda)
+
+    reset_launches()
+    res = launcher.serve(params, cfg, run, batch, SERVE_TOKENS, keep_logits=True)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    b, n = SERVE_BATCH, SERVE_TOKENS
+    step = torch.stack(res.step_logits, dim=1)                       # [B, n, V]
+    if (res.prefill_logits.shape != (b, cfg.vocab) or step.shape != (b, n, cfg.vocab)
+            or res.tokens.shape != (b, n + 1)):
+        fail(f"serve: shapes {tuple(res.prefill_logits.shape)}, {tuple(step.shape)}, {tuple(res.tokens.shape)}")
+    if not (bool(torch.isfinite(res.prefill_logits).all()) and bool(torch.isfinite(step).all())):
+        fail("serve: non-finite logits")
+    if not (bool((res.tokens >= 0).all()) and bool((res.tokens < cfg.vocab).all())):
+        fail("serve: token out of the vocabulary")
+    expect = {"flash_attention": cfg.num_layers, "flash_decode": cfg.num_layers * n}
+    if {k: v for k, v in launches.items() if v} != expect:
+        fail(f"serve: launches {launches}, expected {expect}")
+
+    # teacher forcing: decode step t fed token t at position t == the full
+    # forward over the fed tokens at t
+    full = forward_lm(params, {"tokens": res.tokens[:, :n]}, cfg, run, mode="prefill")
+    diff = float((full - step).abs().max())
+    scale = float(full.abs().max())
+    agree = float((full.argmax(-1) == step.argmax(-1)).float().mean())
+    if not diff <= 1e-3 * scale:
+        fail(f"serve: decode != teacher forcing: max |diff| {diff} > 1e-3 x max |logits| {scale}")
+    prefill_tok_s = b * SERVE_PROMPT / res.prefill_s
+    decode_tok_s = b * n / res.decode_s
+    print(f"  prefill [{b}x{SERVE_PROMPT}] {res.prefill_s * 1e3:.1f} ms = {prefill_tok_s:.1f} tokens/s; "
+          f"decode {n} tokens/seq in {res.decode_s * 1e3:.1f} ms = {res.decode_s * 1e3 / n:.2f} ms/step "
+          f"= {decode_tok_s:.1f} tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches {launches} "
+          f"(B4 {launches['flash_attention']} per prefill = layers, B5 "
+          f"{launches['flash_decode'] // n} per token)")
+    print(f"  teacher forcing over {n} steps: max |decode - forward| {diff:.4g} = "
+          f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f}")
+    del full, step
+
+    prefill = launcher.build_prefill_step(cfg, run)
+    decode = launcher.build_decode_step(cfg, run)
+    tok = res.tokens[:, -1:].contiguous()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        with record_function("serve.prefill"):
+            prefill(params, batch)
+            torch.cuda.synchronize()
+        with record_function("serve.decode_step"):
+            decode(params, tok, res.cache)                           # position n of the cache
+            torch.cuda.synchronize()
+    pre = device_share(prof, "serve.prefill", "flash_attention_kernel")
+    dec = device_share(prof, "serve.decode_step", "flash_decode_kernel")
+    # the projections', MLP's and last position's unembedding flops, and the
+    # bytes of weights one decode step reads
+    gemm_flops = 2 * b * SERVE_PROMPT * (n_params - cfg.vocab * cfg.d_model) + 2 * b * cfg.d_model * cfg.vocab
+    print(f"profile: prefill span {pre['span_ms']:.1f} ms, device busy {pre['busy_ms']:.1f} ms "
+          f"(idle {100 * pre['idle']:.1f}%); cuBLAS products {pre['gemm_ms']:.1f} ms = "
+          f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}% ({gemm_flops:.4g} flops, "
+          f"{gemm_flops / pre['gemm_ms'] / 1e9:.1f} TFLOP/s); B4 {pre['kernel_ms']:.1f} ms = "
+          f"{100 * pre['kernel_share']:.1f}% of the device time")
+    print(f"profile: decode step (cache_len {n + 1}) span {dec['span_ms']:.2f} ms, device busy "
+          f"{dec['busy_ms']:.2f} ms (idle {100 * dec['idle']:.1f}%); cuBLAS products "
+          f"{dec['gemm_ms']:.2f} ms = {100 * dec['gemm_ms'] / dec['busy_ms']:.1f}% (weights "
+          f"{n_params * 4 / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); B5 "
+          f"{dec['kernel_ms'] * 1e3:.1f} us = {100 * dec['kernel_share']:.2f}% of the device time")
+    print(f"  runtime calls: prefill {pre['calls']}, decode step {dec['calls']}")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
+    metrics = dict(arch=SERVE_ARCH, params=n_params, batch=b, prompt=SERVE_PROMPT, tokens=n,
+                   prefill_ms=res.prefill_s * 1e3, prefill_tok_s=prefill_tok_s,
+                   decode_ms_per_step=res.decode_s * 1e3 / n, decode_tok_s=decode_tok_s,
+                   max_memory_allocated=peak, teacher_forcing_max_diff=diff,
+                   teacher_forcing_rel=diff / scale, argmax_agreement=agree,
+                   prefill_profile=pre, decode_profile=dec)
+    del params, res, prof
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+def reduced_serve(torch) -> None:
+    """The reduced LM served on the card equals the same on the CPU: the
+    same tokens, logits and caches within 1e-4 (weights made on the CPU
+    and copied)."""
+    from repro_torch import convert
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    cfg = launcher.model_config(SERVE_ARCH, reduced=True, device=cuda)
+    p_cpu = init_params(cfg, seed=0, device=cpu)
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
+    prompt = launcher.make_prompt(cfg, 2, 32, cpu)
+    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(cuda)}, 8,
+                         keep_logits=True)
+    ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
+    pairs = [("prefill", gpu.prefill_logits, ref.prefill_logits)]
+    pairs += [(f"step {i}", a, b) for i, (a, b) in enumerate(zip(gpu.step_logits, ref.step_logits))]
+    pairs += [(f"cache {i}", a.k, b.k) for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers))]
+    pairs += [(f"cache {i}", a.v, b.v) for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers))]
+    worst = max(float((a.cpu() - b).abs().max()) for _, a, b in pairs)
+    if not torch.equal(gpu.tokens.cpu(), ref.tokens) or not worst <= 1e-4:
+        fail(f"reduced serve: card != CPU (tokens equal: {torch.equal(gpu.tokens.cpu(), ref.tokens)}, "
+             f"max |diff| {worst})")
+    print(f"  reduced {SERVE_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
+          f"{cfg.resolved_head_dim}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
+          f"within {worst:.3g} (limit 1e-4)")
+
+
 def main() -> int:
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -574,6 +913,8 @@ def main() -> int:
 
     print("kernels vs plain versions on the card:")
     rows = check_kernels(torch)
+    print("attention kernels vs plain versions on the card, beside SDPA:")
+    check_attention_kernels(torch, rows)
 
     # warm the card's lazily loaded PyTorch kernels outside the timed runs
     run_search(torch, dashcam(scale=1.0), dict(MAIN_PLAN, max_steps=100), torch.device("cuda"))
@@ -603,6 +944,11 @@ def main() -> int:
         torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around)[:2],
         MULTI_PLAN["cohorts"])
 
+    print(f"serve path: {SERVE_ARCH}, full width, float32, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_TOKENS} greedy tokens:")
+    serve_launches, serve_metrics = serve_path(torch)
+    reduced_serve(torch)
+
     summary = []
     for kname, key, src, replaces, launches in (
         ("thompson_choose", ("thompson_choose", 50, 1000), "src/repro_torch/csrc/thompson_choose.cu",
@@ -614,16 +960,22 @@ def main() -> int:
          "src/repro/kernels/iou_match/kernel.py:37", scan_launches),
         ("iou_matrix_batched", ("iou_matrix_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
          "src/repro/kernels/iou_match/kernel.py:37", multi_launches),
+        ("flash_attention", ("flash_attention", *B4_SHAPES[0]), "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:91", serve_launches),
+        ("flash_decode", ("flash_decode", *B5_SHAPES[0][:6]), "src/repro_torch/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_decode/kernel.py:71", serve_launches),
     ):
         row = rows[key]
         summary.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=launches[kname], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None, shape=row["shape"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
-    print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches}}))
+    print(json.dumps({"serve": serve_metrics}))
+    print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
+                                   "serve": serve_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,6 +8,8 @@ words.  A multi-query carry (a leading ``[Q]`` on every array, keys
 uint32[Q, 2]) converts the same way, and so does the multi-query driver's
 ``DetectionCache`` (``{"tag", "store"}``; the port's cache keeps one
 scratch row past its capacity, added here and stripped by ``to_numpy``).
+The LM's parameters travel as the reference's own nested dict of numpy
+arrays (``params_from_numpy``, ``params_to_numpy``), key for key.
 Nothing here imports the reference package.
 """
 from __future__ import annotations
@@ -21,7 +23,10 @@ from repro_torch.core.chunks import ChunkIndex
 from repro_torch.core.exsample import ExSampleCarry
 from repro_torch.core.matcher import MatcherState
 from repro_torch.core.state import SamplerState
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.layers import ParamNode
+from repro_torch.models.transformer import empty_model
 from repro_torch.serve.batcher import DetectionCache
 from repro_torch.sim.oracle import Detections
 from repro_torch.sim.repository import Repository
@@ -114,4 +119,57 @@ def to_numpy(obj) -> dict:
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         out[f.name] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+    return out
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _param_tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a)                           # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":            # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamNode:
+    """The reference's parameter tree (a nested dict of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's ``ParamNode`` for
+    ``cfg`` on ``device`` (default: the card).  The paths and shapes must
+    match exactly; the dtype (float32 or bfloat16) is the arrays' own."""
+    flat = _flatten(tree)
+    dtypes = {_param_tensor(a).dtype for a in flat.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"parameters of mixed dtypes {dtypes}")
+    params = empty_model(cfg, dtypes.pop(), device)
+    named = dict(params.named_parameters())
+    if set(flat) != set(named):
+        raise KeyError(f"parameter paths differ: missing {sorted(set(named) - set(flat))}, "
+                       f"extra {sorted(set(flat) - set(named))}")
+    with torch.no_grad():
+        for path, p in named.items():
+            if tuple(flat[path].shape) != tuple(p.shape):
+                raise ValueError(f"{path}: shape {flat[path].shape} != {tuple(p.shape)}")
+            p.copy_(_param_tensor(flat[path]))
+    return params
+
+
+def params_to_numpy(params: ParamNode) -> dict:
+    """The port's parameters as the reference's nested dict of numpy arrays
+    (bfloat16 parameters come back as float32, which holds them exactly)."""
+    out: dict = {}
+    for path, p in params.named_parameters():
+        node = out
+        *parents, leaf = path.split(".")
+        for name in parents:
+            node = node.setdefault(name, {})
+        t = p.detach()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     return out

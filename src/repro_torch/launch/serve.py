@@ -1,0 +1,112 @@
+"""Serving launcher: prefill + greedy decode for a dense ``--arch``, on the card.
+
+Counterpart of ``repro.launch.serve``, with the same flags, flow and
+prints.  Weights are random (seed 0), made on the device; the prompt is
+random tokens (seed 1).  As in the reference, decode starts from an empty
+cache at position 0 with the prefill's argmax token: the prompt's own K/V
+never reach the decode cache (ROADMAP C5).
+
+  python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 4 --prompt-len 2048 --tokens 64
+  python -m repro_torch.launch.serve --device cpu --arch phi3-medium-14b --tokens 8
+
+``--device`` defaults to ``cuda`` and fails without a card.  With
+``--reduced``, or on the CPU, the config is ``scale_down``'s reduced one.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import ARCHS, RunConfig, scale_down
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models.transformer import DecodeCache, init_decode_cache, init_params
+from repro_torch.serve.serve_step import build_decode_step, build_prefill_step
+
+RUN = RunConfig(param_dtype="float32")
+
+
+@dataclasses.dataclass
+class ServeResult:
+    prefill_logits: torch.Tensor          # [B, V]
+    tokens: torch.Tensor                  # int32[B, 1 + n]: the prefill's argmax, then n decoded
+    step_logits: list                     # per decode step, [B, V] (when kept)
+    cache: DecodeCache
+    prefill_s: float
+    decode_s: float
+
+
+def model_config(arch: str, *, reduced: bool, device: torch.device) -> ModelConfig:
+    cfg = ARCHS[arch]
+    return scale_down(cfg) if reduced or device.type == "cpu" else cfg
+
+
+def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, device, seed: int = 1) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g, dtype=torch.int32)
+    return {"tokens": tokens.to(device)}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
+          keep_logits: bool = False) -> ServeResult:
+    """Prefill the prompt, then decode ``tokens`` greedy tokens per
+    sequence from a zeroed cache of length prompt + tokens + 1."""
+    prefill = build_prefill_step(cfg, run)
+    decode = build_decode_step(cfg, run)
+    device = batch["tokens"].device
+    b, s = batch["tokens"].shape
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+
+    cache = init_decode_cache(cfg, b, s + tokens + 1, torch.float32, device)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    out, step_logits = [tok], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(tokens):
+        tok, lg, cache = decode(params, tok, cache)
+        out.append(tok)
+        if keep_logits:
+            step_logits.append(lg)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    return ServeResult(prefill_logits=logits, tokens=torch.cat(out, dim=1), step_logits=step_logits,
+                       cache=cache, prefill_s=prefill_s, decode_s=decode_s)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-7b", choices=sorted(ARCHS))
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve(args.device)
+    cfg = model_config(args.arch, reduced=args.reduced, device=device)
+    params = init_params(cfg, seed=0, dtype=RUN.dtype(), device=device)
+    b, s = args.batch, args.prompt_len
+    res = serve(params, cfg, RUN, make_prompt(cfg, b, s, device), args.tokens)
+    print(f"prefill [{b}×{s}] → logits {tuple(res.prefill_logits.shape)} in {res.prefill_s:.2f}s")
+    dt = res.decode_s
+    print(f"decoded {args.tokens} tokens/seq in {dt:.2f}s "
+          f"({args.tokens * b / dt:.1f} tok/s on {device})")
+    print("sample:", res.tokens[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

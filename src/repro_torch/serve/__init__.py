@@ -1,6 +1,7 @@
 """Serving substrate: the device half of the multi-query batcher (the
-dedup of a round's frames and the detection cache).  The host-side
-``RequestBatcher`` and the hash-sharded cache come with later slices."""
+dedup of a round's frames and the detection cache), and the LM's prefill
+and decode steps (``serve_step``).  The host-side ``RequestBatcher`` and
+the hash-sharded cache come with later slices."""
 from repro_torch.serve.batcher import (
     DetectionCache,
     cache_insert,

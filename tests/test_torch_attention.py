@@ -1,0 +1,179 @@
+"""The port's attention kernels (B4 flash attention, B5 flash decode)
+against the JAX package, on the CPU.
+
+The dispatchers run the plain PyTorch versions on a CPU tensor; these are
+held to the reference's Pallas kernels run with ``interpret=True`` and to
+their oracles (``attention_ref``, ``decode_ref``), on the same inputs made
+with numpy from a seed.  Tolerances are the reference's own kernel tests':
+2e-5 in float32 and 2e-2 in bfloat16 (both sides do float32 math; they
+sum in other orders).
+
+Two behaviours of the reference are pinned here:
+* causal attention at S != T follows the Pallas kernel (top-left: row i
+  sees column j iff i >= j), not ``attention_ref``, which aligns the
+  diagonal bottom-right (ROADMAP C4);
+* flash decode with ``cache_len = 0`` gives the mean of V over all T
+  positions, as both the Pallas kernel and ``decode_ref`` do.
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as j_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro.kernels.flash_decode.kernel import flash_decode as j_flash_decode
+from repro.kernels.flash_decode.ref import decode_ref as j_decode_ref
+from repro.models import attention as j_attn
+from repro_torch.kernels.flash_attention import kernel as t_fa_kernel
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_decode import kernel as t_fd_kernel
+from repro_torch.kernels.flash_decode import ops as t_fd_ops
+from repro_torch.models import attention as t_attn
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype`` (both
+    round the float32 draws to nearest even for bfloat16)."""
+    return jnp.asarray(a, getattr(jnp, dtype)), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(port: torch.Tensor, ref, tol):
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+def _qkv(seed, b, s, t, h, kv, d, dtype):
+    q = _pair(_normal(seed, b, s, h, d), dtype)
+    k = _pair(_normal(seed + 1, b, t, kv, d), dtype)
+    v = _pair(_normal(seed + 2, b, t, kv, d), dtype)
+    return q, k, v
+
+
+# ---------------------------------------------------------------- B4
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 2, 2, 16),     # MHA-like
+    (2, 128, 4, 2, 32),    # GQA 2:1
+    (1, 96, 6, 1, 16),     # MQA, non-pow2 seq (divisible by 32)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_the_reference_kernel_and_oracle(causal, shape, dtype):
+    b, s, h, kv, d = shape
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(sum(shape), b, s, s, h, kv, d, dtype)
+    out = t_fa_ops.attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    kernel = j_flash_attention(jq, jk, jv, causal=causal, block_q=32, block_kv=32, interpret=True)
+    _close(out, kernel.astype(jnp.float32), TOL[dtype])
+    _close(out, j_attention_ref(jq, jk, jv, causal=causal).astype(jnp.float32), TOL[dtype])
+
+
+@pytest.mark.parametrize("s,t", [(32, 64), (64, 32)])
+def test_attention_plain_follows_the_kernel_when_s_differs_from_t(s, t):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(7, 2, s, t, 4, 2, 16, "float32")
+    out = t_fa_ops.attention(tq, tk, tv, causal=True)
+    kernel = j_flash_attention(jq, jk, jv, causal=True, block_q=32, block_kv=32, interpret=True)
+    _close(out, kernel, TOL["float32"])
+    # the reference's oracle aligns the diagonal bottom-right, the kernel top-left
+    oracle = np.asarray(j_attention_ref(jq, jk, jv, causal=True))
+    assert np.abs(out.numpy() - oracle).max() > 0.1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plain_at_a_ragged_length(causal):
+    """S = T = 50, no multiple of any tile: the reference kernel runs it as
+    one 50-row block, its oracle directly."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(11, 2, 50, 50, 4, 2, 16, "float32")
+    out = t_fa_ops.attention(tq, tk, tv, causal=causal)
+    _close(out, j_flash_attention(jq, jk, jv, causal=causal, interpret=True), TOL["float32"])
+    _close(out, j_attention_ref(jq, jk, jv, causal=causal), TOL["float32"])
+
+
+# ---------------------------------------------------------------- B5
+def _cache_len(kind, b, t):
+    return {"full": [t] * b, "partial": [t // 3 + 1] * b, "zero": [0] * b,
+            "mixed": ([0, 1, t, t // 2 + 3] * b)[:b]}[kind]
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 64, 256), (1, 4, 4, 32, 128), (4, 6, 3, 16, 100)])
+@pytest.mark.parametrize("lens", ["full", "partial", "zero", "mixed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_the_reference_kernel_and_oracle(shape, lens, dtype):
+    b, h, kv, d, t = shape
+    jq, tq = _pair(_normal(1, b, h, d), dtype)
+    jk, tk = _pair(_normal(2, b, t, kv, d), dtype)
+    jv, tv = _pair(_normal(3, b, t, kv, d), dtype)
+    cl = np.asarray(_cache_len(lens, b, t), np.int32)
+    out = t_fd_ops.decode(tq, tk, tv, torch.from_numpy(cl))
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    block = t // 4 if t % 4 == 0 else t          # T = 100 runs as one block in the reference
+    kernel = j_flash_decode(jq, jk, jv, jnp.asarray(cl), block_kv=block, interpret=True)
+    _close(out, kernel.astype(jnp.float32), TOL[dtype])
+    _close(out, j_decode_ref(jq, jk, jv, jnp.asarray(cl)).astype(jnp.float32), TOL[dtype])
+
+
+def test_decode_with_an_empty_cache_is_the_mean_of_v():
+    b, h, kv, d, t = 2, 4, 2, 16, 37
+    tq = torch.from_numpy(_normal(4, b, h, d))
+    tk, tv = torch.from_numpy(_normal(5, b, t, kv, d)), torch.from_numpy(_normal(6, b, t, kv, d))
+    out = t_fd_ops.decode(tq, tk, tv, torch.zeros(b, dtype=torch.int32))
+    mean = tv.mean(dim=1).repeat_interleave(h // kv, dim=1)
+    torch.testing.assert_close(out, mean, rtol=2e-6, atol=2e-6)
+
+
+# ------------------------------------------------------- the model's entry points
+def test_blocked_attention_on_unrepeated_kv_matches_the_reference():
+    """The reference's model repeats K/V before its jnp blocked attention;
+    the port passes them un-repeated to B4, which maps heads by index."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(9, 2, 32, 32, 6, 2, 16, "float32")
+    out = t_attn.blocked_attention(tq, tk, tv, causal=True)
+    ref = j_attn.blocked_attention(jq, j_attn.repeat_kv(jk, 6), j_attn.repeat_kv(jv, 6),
+                                   causal=True, block_q=16, block_kv=16)
+    _close(out, ref, TOL["float32"])
+
+
+def test_decode_attention_matches_the_reference():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(10, 3, 1, 40, 8, 2, 16, "float32")
+    cl = np.asarray([5, 40, 1], np.int32)
+    out = t_attn.decode_attention(tq, tk, tv, cache_len=torch.from_numpy(cl))
+    assert out.shape == (3, 1, 8, 16)
+    _close(out, j_attn.decode_attention(jq, jk, jv, cache_len=jnp.asarray(cl)), TOL["float32"])
+
+
+def test_options_off_the_path_raise():
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        t_attn.blocked_attention(q, q, q, q_offset=2)
+    with pytest.raises(NotImplementedError, match="probs_bf16"):
+        t_attn.blocked_attention(q, q, q, probs_bf16=True)
+
+
+def test_kernel_wrappers_refuse_what_they_cannot_run():
+    """An unsupported head dim or dtype is an error, never a fallback; the
+    wrappers take CUDA tensors only (the CPU runs the plain versions)."""
+    for d in (12, 4, 264):
+        q = torch.zeros(1, 4, 2, d)
+        with pytest.raises(ValueError, match="head dim"):
+            t_fa_kernel.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="head dim"):
+            t_fd_kernel.flash_decode(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    q16 = torch.zeros(1, 4, 2, 16, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_fa_kernel.flash_attention(q16, q16, q16)
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fa_kernel.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fd_kernel.flash_decode(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    before = (t_fa_kernel.flash_attention.launches, t_fd_kernel.flash_decode.launches)
+    t_fa_ops.attention(q, q, q)
+    t_fd_ops.decode(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    assert (t_fa_kernel.flash_attention.launches, t_fd_kernel.flash_decode.launches) == before

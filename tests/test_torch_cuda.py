@@ -9,6 +9,10 @@ Without a card they skip (the kernels have no CPU mode).
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
 from repro_torch.kernels.iou_match.ref import iou_ref
 from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
@@ -94,3 +98,56 @@ def test_iou_batched_kernel_equals_plain_and_the_2d_kernel(card, q, d, r):
     assert torch.equal(_bits(out), _bits(iou_ref(a, b)))
     for i in range(q):
         assert torch.equal(_bits(out[i]), _bits(iou_matrix(a[i].contiguous(), b[i].contiguous())))
+
+
+# attention kernels, (rtol, atol): both sides compute in float32 and sum in
+# other orders; a bfloat16 output rounds once, so the two differ by at most
+# one bf16 ulp, 2^-7·|ref|
+ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d", [
+    (2, 64, 64, 4, 2, 16),          # GQA 2:1, one tile
+    (1, 100, 100, 8, 2, 128),       # ragged S = T
+    (1, 256, 1024, 8, 2, 64),       # S != T: top-left causal rule
+    (1, 130, 70, 4, 4, 256),        # gemma's head width, S > T
+    (2, 33, 33, 6, 1, 40),          # MQA, d a multiple of 8 only
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dtype):
+    g = torch.Generator().manual_seed(b * 1000 + s + t + d)
+    q = torch.randn(b, s, h, d, generator=g).to(card, dtype)
+    k = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
+    v = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
+
+
+@pytest.mark.parametrize("b,h,kv,d,t", [
+    (2, 8, 2, 64, 256),
+    (4, 40, 10, 128, 1000),         # phi3-medium's heads, a ragged last block
+    (2, 48, 1, 128, 300),           # granite-20b's MQA group of 48
+    (1, 16, 16, 256, 130),          # gemma
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_equals_plain(card, b, h, kv, d, t, dtype):
+    g = torch.Generator().manual_seed(b * 1000 + h + t + d)
+    q = torch.randn(b, h, d, generator=g).to(card, dtype)
+    kc = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
+    vc = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
+    lens = torch.tensor(([0, 1, t, t // 2 + 3] * b)[:b], dtype=torch.int32, device=card)
+    before = flash_decode.launches
+    out = flash_decode(q, kc, vc, lens)
+    assert flash_decode.launches == before + 1
+    ref = decode_ref(q, kc, vc, lens)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
+    # cache_len = 0: the mean of V over all T positions, as the reference
+    mean = vc[0].float().mean(dim=0).repeat_interleave(h // kv, dim=0)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out[0].float(), mean.to(dtype).float(), rtol=rtol, atol=atol)

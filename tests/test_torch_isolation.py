@@ -41,7 +41,7 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
-    assert {"core", "kernels", "serve", "sim", "launch"} <= scanned
+    assert {"core", "kernels", "serve", "sim", "launch", "models", "configs"} <= scanned
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -62,7 +62,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.device import resolve
-    from repro_torch.launch import search
+    from repro_torch.launch import search, serve
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve()
@@ -71,6 +71,10 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         search.main(["--scale", "0.02", "--queries", "0", "1", "--plan",
                      '{"queries": 2, "max_steps": 8, "execution": {"queries_axis": true}}'])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "phi3-medium-14b", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "phi3-medium-14b", "--reduced", "--tokens", "1"])
     assert resolve("cpu").type == "cpu"
 
 
