@@ -2,8 +2,10 @@
 plain PyTorch version on the card, drive the full-size scan search and the
 full-width multi-query search on the card and hold each against the same
 search on the CPU, then serve the full-width phi3-medium-14b LM (prefill
-through kernel B4, greedy decode through kernel B5) and hold its decode to
-teacher forcing, and the reduced LM on the card to the same on the CPU.
+through kernel B4, greedy decode through kernel B5) and the full-width
+mamba2-370m (prefill through kernel B6, the SSD chunk scan), hold each
+one's decode to teacher forcing, and each reduced LM on the card to the
+same on the CPU.
 
     python3 chip_smoke.py
 
@@ -43,10 +45,19 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   method="pallas", trace_every=256,
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
-# the LM serving path: phi3-medium-14b at full width in the launcher's
-# float32, 4 requests of a 2,048-token prompt, 64 greedy tokens each
-SERVE_ARCH = "phi3-medium-14b"
-SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 64
+# the LM serving paths, at full width in the launcher's float32, 64 greedy
+# tokens each: phi3-medium-14b (dense) with 4 requests of a 2,048-token
+# prompt; mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each
+# (batch, head) carries its state across 8 chunks of 1,024.  ``prefill``
+# and ``decode`` name the kernel of each step (wrapper, device kernel) and
+# ``reduced_prompt`` the prompt of the reduced model's card-against-CPU check.
+SERVE_CELLS = {
+    "dense": dict(arch="phi3-medium-14b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
+                  prefill=("flash_attention", "flash_attention_kernel", "B4"),
+                  decode=("flash_decode", "flash_decode_kernel", "B5")),
+    "ssm": dict(arch="mamba2-370m", batch=4, prompt=8192, tokens=64, reduced_prompt=64,
+                prefill=("ssd_scan", "ssd_scan_kernel", "B6"), decode=None),
+}
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
 # 2^-7·|ref|: both sides compute in float32 and round once) and never
@@ -72,6 +83,26 @@ B5_SHAPES = (
     (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (4, 48, 1, 128, 8192, "float32", (0, 1, 8192, 3000)),     # granite-20b's MQA group
     (4, 16, 16, 256, 8192, "float32", (0, 1, 8192, 3000)),    # gemma-7b
+)
+# B6 against its plain version, element by element within 1e-4 + 1e-4·|ref|:
+# both are float32 and sum the chunk's cumulative log-decay in float64, so
+# only the order of the float32 products and sums differs
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
+# (B, S, H, P, N, chunk, a_log, dt); a = -exp(a_log), the model's init at
+# a_log = 1; None draws a_log per head as the reference's kernel test.  dt
+# "softplus" is softplus of a normal (~0.8): at a = -e, exp(acs) underflows
+# to 0 within ~50 positions, so the far tiles of a chunk of 1,024 and the
+# state of all but its last tile carry no weight.  dt "weak" is log-uniform
+# in [1e-3, 0.1], Mamba-2's dt init: with a = -1 no decay underflows, which
+# the check requires, so every tile pair and every chunk's state counts.
+# The first row is the serve path's prefill.
+B6_SHAPES = (
+    (4, 8192, 32, 64, 128, 1024, 1.0, "softplus"),
+    (1, 1024, 32, 64, 128, 1024, 1.0, "softplus"),           # one chunk
+    (2, 512, 8, 64, 128, 256, 1.0, "softplus"),              # Mamba-2's own chunk of 256
+    (3, 128, 1, 16, 32, 32, None, "softplus"),               # the reference's kernel test's widths
+    (2, 2048, 8, 64, 128, 1024, math.log(8.0), "softplus"),  # a = -8: exp(acs) underflows
+    (2, 4096, 8, 64, 128, 1024, 0.0, "weak"),                # serve widths, 4 chunks, no underflow
 )
 
 
@@ -454,11 +485,12 @@ def kernel_fns() -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
 
     return {"thompson_choose": thompson_choose, "thompson_choose_batched": thompson_choose_batched,
             "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
-            "flash_attention": flash_attention, "flash_decode": flash_decode}
+            "flash_attention": flash_attention, "flash_decode": flash_decode, "ssd_scan": ssd_scan}
 
 
 def reset_launches() -> None:
@@ -722,13 +754,106 @@ def per_query_contract(torch, name, setup) -> None:
           f"8 solo runs in {solo_s:.2f} s")
 
 
-# ------------------------------------------------------------ serve path
+# ------------------------------------------------------------ serve paths
 
-def device_share(prof, range_name: str, kernel_key: str) -> dict:
+def ssd_inputs(torch, b, s, h, p, n, a_log, dt_kind, seed):
+    """B6's inputs on the card in the model's layout: x, dt (see
+    B6_SHAPES), B and C as column slices of one [B, S, 2N] tensor (as the
+    model's split), a [H] < 0."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda")
+    if dt_kind == "weak":
+        u = torch.rand((b, s, h), generator=g, device="cuda")
+        dt = torch.exp(math.log(1e-3) + math.log(100.0) * u)
+    else:
+        dt = F.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
+    bc = 0.3 * torch.randn((b, s, 2 * n), generator=g, device="cuda")
+    if a_log is None:
+        a = -torch.exp(0.3 * torch.randn((h,), generator=g, device="cuda"))
+    else:
+        a = torch.full((h,), -math.exp(a_log), device="cuda")
+    return x, dt, bc[..., :n], bc[..., n:], a
+
+
+def ssd_work(b, s, h, p, n, q) -> tuple[int, int]:
+    """(bytes, operations) the SSD scan needs: x, dt, B, C and a read once,
+    y and the final state written once; per chunk the causal half of C·Bᵀ
+    once for all heads that share B and C (2N a pair), and per head the
+    decay and the product with x·dt (2P + 3 a pair) and the inter-chunk and
+    state products (4QPN) with their scalings (3QP)."""
+    nc, pairs = s // q, q * (q + 1) // 2
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + b * h * p * n + h)
+    ops = b * nc * (pairs * 2 * n + h * (pairs * (2 * p + 3) + 4 * q * p * n + 3 * q * p))
+    return nbytes, ops
+
+
+def ssd_kernel_ops(b, s, h, p, n, q, tile=64) -> int:
+    """The multiply-adds (2 operations each) B6 itself issues: per (b, h)
+    and chunk, the 64 x 64 tile pairs on and below the diagonal form
+    C·Bᵀ (2N a score) and add it times x·dt into y (2P a score, an upper
+    bound on the diagonal tile), and the inter-chunk and state products
+    take 4QPN."""
+    rows = b * h
+    nt = -(-q // tile)
+    return rows * (s // q) * (nt * (nt + 1) // 2 * tile * tile * (2 * n + 2 * p) + 4 * q * p * n)
+
+
+def check_ssd_kernel(torch, rows) -> None:
+    """B6 against its plain version on the card, y and the final state,
+    element by element within SSD_ATOL + SSD_RTOL·|ref|.  No PyTorch call
+    computes the SSD scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan.kernel import smem_bytes, ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    for shape in B6_SHAPES:
+        b, s, h, p, n, chunk, a_log, dt_kind = shape
+        x, dt, bm, cm, a = ssd_inputs(torch, b, s, h, p, n, a_log, dt_kind, seed=b * s + h + p + n)
+        q = min(chunk, s)
+        y, hs = ssd_scan(x, dt, bm, cm, a, chunk=chunk)
+        ry, rh = ssd_ref(x, dt, bm, cm, a, chunk=chunk)
+        torch.cuda.synchronize()
+        worst, errs = 0.0, []
+        for out, ref in ((y, ry), (hs, rh)):
+            diff = (out - ref).abs()
+            worst = max(worst, float((diff / (SSD_ATOL + SSD_RTOL * ref.abs())).max()))
+            errs.append((float(diff.max()), float(ref.abs().max())))
+        if not worst <= 1.0 or not (torch.isfinite(y).all() and torch.isfinite(hs).all()):
+            fail(f"ssd_scan != plain at {shape}: max |diff| (y, state) {errs}, "
+                 f"largest |diff| / limit {worst}")
+        underflow = float((torch.exp((dt * a).reshape(b, s // q, q, h).sum(dim=2)) == 0).float().mean())
+        if a_log is not None and a_log > 2 and underflow < 1.0:
+            fail(f"ssd_scan strong-decay shape: exp(acs) of a whole chunk underflows in only {underflow}")
+        if dt_kind == "weak" and underflow > 0.0:
+            fail(f"ssd_scan weak-decay shape: exp(acs) of a whole chunk underflows in {underflow}")
+        del y, hs, ry, rh
+        nbytes, ops = ssd_work(b, s, h, p, n, q)
+        own = ssd_kernel_ops(b, s, h, p, n, q)
+        big = ops > 1e10
+        row = timed_row(lambda: ssd_scan(x, dt, bm, cm, a, chunk=chunk),
+                        lambda: ssd_ref(x, dt, bm, cm, a, chunk=chunk),
+                        n=3 if big else 20, inner=2 if big else 10, reps=3 if big else 5,
+                        shape=[b, s, h, p, n, q], a_log=a_log, dt=dt_kind, bytes=nbytes, ops=ops,
+                        max_abs_err=errs[0][0], max_abs_ref=errs[0][1], state_max_abs_err=errs[1][0],
+                        state_max_abs_ref=errs[1][1], diff_over_limit=worst, chunk_underflow=underflow,
+                        kernel_ops=own, smem_bytes=smem_bytes(p, n, q))
+        rows[("ssd_scan", *shape)] = row
+        print(f"  ssd_scan (B,S,H,P,N,Q)=({b},{s},{h},{p},{n},{q}), a_log {a_log}, dt {dt_kind}: "
+              f"max |diff| y {errs[0][0]:.3g} (max |ref| {errs[0][1]:.4g}), state {errs[1][0]:.3g} "
+              f"(max |ref| {errs[1][1]:.4g}), largest |diff| / limit {worst:.3g} (limit {SSD_ATOL:g} + "
+              f"{SSD_RTOL:g}·|ref|); whole-chunk decay underflows in {100 * underflow:.0f}% of chunks; "
+              f"{ops:.4g} operations needed, {own:.4g} issued by B6 ({own / row['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{row['smem_bytes']} bytes of dynamic shared memory); " + describe(row))
+        del x, dt, bm, cm, a
+        torch.cuda.empty_cache()
+
+
+def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
     """Inside the host span of the ``range_name`` range: the device's busy
     time and idle share, the busy time of kernels whose name holds
-    ``kernel_key`` and of the cuBLAS products (names holding "gemm" or
-    "gemv"), and the runtime calls that launch or wait."""
+    ``kernel_key`` (none when None) and of the cuBLAS products (names
+    holding "gemm" or "gemv"), and the runtime calls that launch or wait."""
     from torch.autograd import DeviceType
 
     span = [e for e in prof.events() if e.name == range_name and e.device_type == DeviceType.CPU][0]
@@ -737,7 +862,7 @@ def device_share(prof, range_name: str, kernel_key: str) -> dict:
     for e in device_events(prof):
         overlap = max(0, min(e.time_range.end, hi) - max(e.time_range.start, lo))
         busy += overlap
-        if kernel_key in e.name:
+        if kernel_key is not None and kernel_key in e.name:
             key += overlap
         elif "gemm" in e.name or "gemv" in e.name:
             gemm += overlap
@@ -751,50 +876,64 @@ def device_share(prof, range_name: str, kernel_key: str) -> dict:
             "gemm_ms": gemm / 1e3, "calls": calls}
 
 
-def serve_path(torch) -> tuple[dict, dict]:
-    """The full-width LM serving path through the launcher's functions:
-    prefill (B4 once per layer), greedy decode (B5 once per layer and
-    token), a teacher-forcing check of every decode step against the full
-    forward over the fed tokens, and a profile of one prefill and one
-    decode step.  Frees the weights before it returns."""
+def serve_path(torch, family: str) -> tuple[dict, dict]:
+    """The full-width LM serving path of ``SERVE_CELLS[family]`` through the
+    launcher's functions: prefill (its kernel once per layer), greedy decode
+    (the dense family's kernel once per layer and token), a teacher-forcing
+    check of every decode step against the full forward over the fed
+    tokens, and a profile of one prefill and one decode step.  Frees the
+    weights before it returns."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch import serve as launcher
+    from repro_torch.models import mamba2
     from repro_torch.models.transformer import forward_lm, init_params
 
+    cell = SERVE_CELLS[family]
+    arch, b, prompt, n = cell["arch"], cell["batch"], cell["prompt"], cell["tokens"]
+    pre_fn, pre_kernel, pre_label = cell["prefill"]
     cuda = torch.device("cuda")
     run = launcher.RUN
-    cfg = launcher.model_config(SERVE_ARCH, reduced=False, device=cuda)
+    cfg = launcher.model_config(arch, reduced=False, device=cuda)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"  {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
-          f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, vocab {cfg.vocab}: {n_params:,} parameters "
-          f"({n_params * 4 / 1e9:.2f} GB float32), made on the card in {time.perf_counter() - t0:.2f} s")
+    if cfg.ssm is None:
+        widths = (f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+                  f"d_ff {cfg.d_ff}")
+    else:
+        d_inner, nheads, state = mamba2.mamba_dims(cfg.d_model, cfg.ssm)
+        widths = (f"{nheads} SSM heads of {cfg.ssm.head_dim}, state {state}, chunk {cfg.ssm.chunk_len}, "
+                  f"d_ff {cfg.d_ff}")
+    print(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, vocab {cfg.vocab}: "
+          f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB float32), made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
     # warm the card's lazily loaded kernels (cuBLAS' heuristics) outside the timed run
-    launcher.serve(params, cfg, run, launcher.make_prompt(cfg, SERVE_BATCH, 128, cuda), 2)
-    batch = launcher.make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, cuda)
+    launcher.serve(params, cfg, run, launcher.make_prompt(cfg, b, 128, cuda), 2)
+    batch = launcher.make_prompt(cfg, b, prompt, cuda)
 
     reset_launches()
-    res = launcher.serve(params, cfg, run, batch, SERVE_TOKENS, keep_logits=True)
+    res = launcher.serve(params, cfg, run, batch, n, keep_logits=True)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
-    b, n = SERVE_BATCH, SERVE_TOKENS
     step = torch.stack(res.step_logits, dim=1)                       # [B, n, V]
     if (res.prefill_logits.shape != (b, cfg.vocab) or step.shape != (b, n, cfg.vocab)
             or res.tokens.shape != (b, n + 1)):
-        fail(f"serve: shapes {tuple(res.prefill_logits.shape)}, {tuple(step.shape)}, {tuple(res.tokens.shape)}")
+        fail(f"serve {arch}: shapes {tuple(res.prefill_logits.shape)}, {tuple(step.shape)}, "
+             f"{tuple(res.tokens.shape)}")
     if not (bool(torch.isfinite(res.prefill_logits).all()) and bool(torch.isfinite(step).all())):
-        fail("serve: non-finite logits")
+        fail(f"serve {arch}: non-finite logits")
     if not (bool((res.tokens >= 0).all()) and bool((res.tokens < cfg.vocab).all())):
-        fail("serve: token out of the vocabulary")
-    expect = {"flash_attention": cfg.num_layers, "flash_decode": cfg.num_layers * n}
+        fail(f"serve {arch}: token out of the vocabulary")
+    expect = {pre_fn: cfg.num_layers}
+    if cell["decode"] is not None:
+        expect[cell["decode"][0]] = cfg.num_layers * n
     if {k: v for k, v in launches.items() if v} != expect:
-        fail(f"serve: launches {launches}, expected {expect}")
+        fail(f"serve {arch}: launches {launches}, expected {expect}")
 
     # teacher forcing: decode step t fed token t at position t == the full
     # forward over the fed tokens at t
@@ -802,17 +941,21 @@ def serve_path(torch) -> tuple[dict, dict]:
     diff = float((full - step).abs().max())
     scale = float(full.abs().max())
     agree = float((full.argmax(-1) == step.argmax(-1)).float().mean())
-    if not diff <= 1e-3 * scale:
-        fail(f"serve: decode != teacher forcing: max |diff| {diff} > 1e-3 x max |logits| {scale}")
-    prefill_tok_s = b * SERVE_PROMPT / res.prefill_s
+    if not diff <= 1e-3 * scale or agree != 1.0:
+        fail(f"serve {arch}: decode != teacher forcing: max |diff| {diff} (limit 1e-3 x max |logits| "
+             f"{scale}), argmax agreement {agree}")
+    prefill_tok_s = b * prompt / res.prefill_s
     decode_tok_s = b * n / res.decode_s
-    print(f"  prefill [{b}x{SERVE_PROMPT}] {res.prefill_s * 1e3:.1f} ms = {prefill_tok_s:.1f} tokens/s; "
+    dec_fn = cell["decode"][0] if cell["decode"] else None
+    per = ", ".join(f"{k} {v // n} per token" if k == dec_fn else f"{k} {v} per prefill"
+                    for k, v in launches.items() if v)
+    print(f"  prefill [{b}x{prompt}] {res.prefill_s * 1e3:.1f} ms = {prefill_tok_s:.1f} tokens/s; "
           f"decode {n} tokens/seq in {res.decode_s * 1e3:.1f} ms = {res.decode_s * 1e3 / n:.2f} ms/step "
-          f"= {decode_tok_s:.1f} tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches {launches} "
-          f"(B4 {launches['flash_attention']} per prefill = layers, B5 "
-          f"{launches['flash_decode'] // n} per token)")
+          f"= {decode_tok_s:.1f} tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches "
+          f"{launches} ({per}; layers {cfg.num_layers})")
     print(f"  teacher forcing over {n} steps: max |decode - forward| {diff:.4g} = "
-          f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f}")
+          f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f} "
+          f"(required 1)")
     del full, step
 
     prefill = launcher.build_prefill_step(cfg, run)
@@ -826,24 +969,32 @@ def serve_path(torch) -> tuple[dict, dict]:
         with record_function("serve.decode_step"):
             decode(params, tok, res.cache)                           # position n of the cache
             torch.cuda.synchronize()
-    pre = device_share(prof, "serve.prefill", "flash_attention_kernel")
-    dec = device_share(prof, "serve.decode_step", "flash_decode_kernel")
+    dec_kernel = cell["decode"]
+    pre = device_share(prof, "serve.prefill", pre_kernel)
+    dec = device_share(prof, "serve.decode_step", None if dec_kernel is None else dec_kernel[1])
     # the projections', MLP's and last position's unembedding flops, and the
     # bytes of weights one decode step reads
-    gemm_flops = 2 * b * SERVE_PROMPT * (n_params - cfg.vocab * cfg.d_model) + 2 * b * cfg.d_model * cfg.vocab
+    gemm_flops = 2 * b * prompt * (n_params - cfg.vocab * cfg.d_model) + 2 * b * cfg.d_model * cfg.vocab
     print(f"profile: prefill span {pre['span_ms']:.1f} ms, device busy {pre['busy_ms']:.1f} ms "
           f"(idle {100 * pre['idle']:.1f}%); cuBLAS products {pre['gemm_ms']:.1f} ms = "
           f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}% ({gemm_flops:.4g} flops, "
-          f"{gemm_flops / pre['gemm_ms'] / 1e9:.1f} TFLOP/s); B4 {pre['kernel_ms']:.1f} ms = "
-          f"{100 * pre['kernel_share']:.1f}% of the device time")
-    print(f"profile: decode step (cache_len {n + 1}) span {dec['span_ms']:.2f} ms, device busy "
+          f"{gemm_flops / pre['gemm_ms'] / 1e9:.1f} TFLOP/s); {pre_label} {pre['kernel_ms']:.1f} ms = "
+          f"{100 * pre['kernel_share']:.1f}% of the device time; the rest elementwise "
+          f"{pre['busy_ms'] - pre['gemm_ms'] - pre['kernel_ms']:.1f} ms")
+    if cfg.ssm is not None:
+        mflops = cfg.num_layers * mamba2.mamba_flops(b * prompt, cfg.d_model, cfg.ssm)
+        print(f"  mamba_flops (the reference's count, projections + SSD): {mflops:.4g} for the "
+              f"prefill, {mflops / pre['busy_ms'] / 1e9:.1f} TFLOP/s of device busy time")
+    dec_kernel_text = ("no kernel" if dec_kernel is None else
+                       f"{dec_kernel[2]} {dec['kernel_ms'] * 1e3:.1f} us = "
+                       f"{100 * dec['kernel_share']:.2f}% of the device time")
+    print(f"profile: decode step (position {n}) span {dec['span_ms']:.2f} ms, device busy "
           f"{dec['busy_ms']:.2f} ms (idle {100 * dec['idle']:.1f}%); cuBLAS products "
           f"{dec['gemm_ms']:.2f} ms = {100 * dec['gemm_ms'] / dec['busy_ms']:.1f}% (weights "
-          f"{n_params * 4 / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); B5 "
-          f"{dec['kernel_ms'] * 1e3:.1f} us = {100 * dec['kernel_share']:.2f}% of the device time")
+          f"{n_params * 4 / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); {dec_kernel_text}")
     print(f"  runtime calls: prefill {pre['calls']}, decode step {dec['calls']}")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
-    metrics = dict(arch=SERVE_ARCH, params=n_params, batch=b, prompt=SERVE_PROMPT, tokens=n,
+    metrics = dict(arch=arch, params=n_params, batch=b, prompt=prompt, tokens=n,
                    prefill_ms=res.prefill_s * 1e3, prefill_tok_s=prefill_tok_s,
                    decode_ms_per_step=res.decode_s * 1e3 / n, decode_tok_s=decode_tok_s,
                    max_memory_allocated=peak, teacher_forcing_max_diff=diff,
@@ -854,33 +1005,36 @@ def serve_path(torch) -> tuple[dict, dict]:
     return launches, metrics
 
 
-def reduced_serve(torch) -> None:
-    """The reduced LM served on the card equals the same on the CPU: the
-    same tokens, logits and caches within 1e-4 (weights made on the CPU
-    and copied)."""
+def reduced_serve(torch, family: str) -> None:
+    """The reduced LM of ``SERVE_CELLS[family]`` served on the card equals
+    the same on the CPU: the same tokens, logits and decode caches within
+    1e-4 (weights made on the CPU and copied)."""
     from repro_torch import convert
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import init_params
 
+    cell = SERVE_CELLS[family]
+    arch = cell["arch"]
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    cfg = launcher.model_config(SERVE_ARCH, reduced=True, device=cuda)
+    cfg = launcher.model_config(arch, reduced=True, device=cuda)
     p_cpu = init_params(cfg, seed=0, device=cpu)
     p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
-    prompt = launcher.make_prompt(cfg, 2, 32, cpu)
+    prompt = launcher.make_prompt(cfg, 2, cell["reduced_prompt"], cpu)
     gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(cuda)}, 8,
                          keep_logits=True)
     ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
     pairs = [("prefill", gpu.prefill_logits, ref.prefill_logits)]
     pairs += [(f"step {i}", a, b) for i, (a, b) in enumerate(zip(gpu.step_logits, ref.step_logits))]
-    pairs += [(f"cache {i}", a.k, b.k) for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers))]
-    pairs += [(f"cache {i}", a.v, b.v) for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers))]
+    for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers)):
+        pairs += [(f"cache {i}.{f}", x, y) for f, x, y in zip(a._fields, a, b)]
     worst = max(float((a.cpu() - b).abs().max()) for _, a, b in pairs)
     if not torch.equal(gpu.tokens.cpu(), ref.tokens) or not worst <= 1e-4:
-        fail(f"reduced serve: card != CPU (tokens equal: {torch.equal(gpu.tokens.cpu(), ref.tokens)}, "
-             f"max |diff| {worst})")
-    print(f"  reduced {SERVE_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
-          f"{cfg.resolved_head_dim}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
-          f"within {worst:.3g} (limit 1e-4)")
+        fail(f"reduced serve {arch}: card != CPU (tokens equal: "
+             f"{torch.equal(gpu.tokens.cpu(), ref.tokens)}, max |diff| {worst})")
+    fields = sorted({f for layer in gpu.cache.layers for f in layer._fields})
+    print(f"  reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, prompt "
+          f"{cell['reduced_prompt']}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
+          f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)")
 
 
 def main() -> int:
@@ -915,6 +1069,8 @@ def main() -> int:
     rows = check_kernels(torch)
     print("attention kernels vs plain versions on the card, beside SDPA:")
     check_attention_kernels(torch, rows)
+    print("SSD chunk scan (B6) vs its plain version on the card:")
+    check_ssd_kernel(torch, rows)
 
     # warm the card's lazily loaded PyTorch kernels outside the timed runs
     run_search(torch, dashcam(scale=1.0), dict(MAIN_PLAN, max_steps=100), torch.device("cuda"))
@@ -944,10 +1100,12 @@ def main() -> int:
         torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around)[:2],
         MULTI_PLAN["cohorts"])
 
-    print(f"serve path: {SERVE_ARCH}, full width, float32, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-          f"{SERVE_TOKENS} greedy tokens:")
-    serve_launches, serve_metrics = serve_path(torch)
-    reduced_serve(torch)
+    serve_launches, serve_metrics = {}, {}
+    for family, cell in SERVE_CELLS.items():
+        print(f"serve path ({family}): {cell['arch']}, full width, float32, batch {cell['batch']}, "
+              f"prompt {cell['prompt']}, {cell['tokens']} greedy tokens:")
+        serve_launches[family], serve_metrics[family] = serve_path(torch, family)
+        reduced_serve(torch, family)
 
     summary = []
     for kname, key, src, replaces, launches in (
@@ -961,9 +1119,12 @@ def main() -> int:
         ("iou_matrix_batched", ("iou_matrix_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
          "src/repro/kernels/iou_match/kernel.py:37", multi_launches),
         ("flash_attention", ("flash_attention", *B4_SHAPES[0]), "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:91", serve_launches),
+         "src/repro/kernels/flash_attention/kernel.py:91", serve_launches["dense"]),
         ("flash_decode", ("flash_decode", *B5_SHAPES[0][:6]), "src/repro_torch/csrc/flash_decode.cu",
-         "src/repro/kernels/flash_decode/kernel.py:71", serve_launches),
+         "src/repro/kernels/flash_decode/kernel.py:71", serve_launches["dense"]),
+        ("ssd_scan", ("ssd_scan", *B6_SHAPES[0]),
+         "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
+         serve_launches["ssm"]),
     ):
         row = rows[key]
         summary.append(dict(
@@ -973,9 +1134,9 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
-    print(json.dumps({"serve": serve_metrics}))
+    print(json.dumps({"serve": serve_metrics["dense"], "serve_ssm": serve_metrics["ssm"]}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
-                                   "serve": serve_launches}}))
+                                   "serve": serve_launches["dense"], "serve_ssm": serve_launches["ssm"]}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,8 @@ uint32[Q, 2]) converts the same way, and so does the multi-query driver's
 ``DetectionCache`` (``{"tag", "store"}``; the port's cache keeps one
 scratch row past its capacity, added here and stripped by ``to_numpy``).
 The LM's parameters travel as the reference's own nested dict of numpy
-arrays (``params_from_numpy``, ``params_to_numpy``), key for key.
+arrays (``params_from_numpy``, ``params_to_numpy``), key for key, and a
+Mamba-2 layer's decode cache as ``{"conv", "ssm"}``.
 Nothing here imports the reference package.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from repro_torch.core.state import SamplerState
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models.layers import ParamNode
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.transformer import empty_model
 from repro_torch.serve.batcher import DetectionCache
 from repro_torch.sim.oracle import Detections
@@ -173,3 +175,19 @@ def params_to_numpy(params: ParamNode) -> dict:
         t = p.detach()
         node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     return out
+
+
+def mamba_cache_from_numpy(d: dict, device=None) -> MambaCache:
+    """A Mamba-2 layer's decode cache from ``{"conv", "ssm"}`` (e.g.
+    ``cache._asdict()`` of the reference's): ``conv`` keeps its dtype (the
+    parameters'), ``ssm`` becomes float32."""
+    return MambaCache(conv=_param_tensor(d["conv"]).to(resolve(device)),
+                      ssm=_param_tensor(d["ssm"]).float().to(resolve(device)))
+
+
+def mamba_cache_to_numpy(cache: MambaCache) -> dict:
+    """The cache as ``{"conv", "ssm"}`` numpy arrays (a bfloat16 window
+    comes back as float32, which holds it exactly)."""
+    conv = cache.conv.detach()
+    return {"conv": (conv.float() if conv.dtype == torch.bfloat16 else conv).cpu().numpy(),
+            "ssm": cache.ssm.detach().cpu().numpy()}

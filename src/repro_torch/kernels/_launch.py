@@ -21,12 +21,12 @@ def require_cuda_f32(name: str, t: torch.Tensor, ndim: int, device: torch.device
         raise ValueError(f"{name} must be contiguous")
 
 
-def bind(lib_name: str, fn_name: str, argtypes: list) -> ctypes._CFuncPtr:
+def bind(lib_name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``fn_name`` of ``lib_name`` with its signature set
     (ctypes would otherwise pass pointers as 32-bit ints)."""
     fn = getattr(load(lib_name), fn_name)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",   # registers, shared memory and spills, into the build log
 )
 # Every kernel source; ``name`` is the file stem under csrc/.
-SOURCES = ("thompson_choose", "iou_matrix", "flash_attention", "flash_decode")
+SOURCES = ("thompson_choose", "iou_matrix", "flash_attention", "flash_decode", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,15 @@
-"""Serving launcher: prefill + greedy decode for a dense ``--arch``, on the card.
+"""Serving launcher: prefill + greedy decode for a dense or ssm ``--arch``, on the card.
 
 Counterpart of ``repro.launch.serve``, with the same flags, flow and
 prints.  Weights are random (seed 0), made on the device; the prompt is
 random tokens (seed 1).  As in the reference, decode starts from an empty
 cache at position 0 with the prefill's argmax token: the prompt's own K/V
-never reach the decode cache (ROADMAP C5).
+(dense) or conv window and state (ssm) never reach the decode cache
+(ROADMAP C5).  An ssm prompt must be a multiple of min(chunk_len, length).
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 4 --prompt-len 2048 --tokens 64
-  python -m repro_torch.launch.serve --device cpu --arch phi3-medium-14b --tokens 8
+  python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt-len 8192 --tokens 64
+  python -m repro_torch.launch.serve --device cpu --arch mamba2-370m --prompt-len 64 --tokens 8
 
 ``--device`` defaults to ``cuda`` and fails without a card.  With
 ``--reduced``, or on the CPU, the config is ``scale_down``'s reduced one.
@@ -58,7 +60,8 @@ def _sync(device: torch.device) -> None:
 def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
           keep_logits: bool = False) -> ServeResult:
     """Prefill the prompt, then decode ``tokens`` greedy tokens per
-    sequence from a zeroed cache of length prompt + tokens + 1."""
+    sequence from a zeroed cache (KV layers of length prompt + tokens + 1;
+    Mamba-2 layers a zero conv window and state)."""
     prefill = build_prefill_step(cfg, run)
     decode = build_decode_step(cfg, run)
     device = batch["tokens"].device
@@ -87,8 +90,11 @@ def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma-7b", choices=sorted(ARCHS))
+    ap = argparse.ArgumentParser(
+        description="Prefill + greedy decode of a dense or ssm (mamba2) LM with random weights; "
+                    "the moe, hybrid, vlm and audio families are not ported yet.")
+    ap.add_argument("--arch", default="gemma-7b", choices=sorted(ARCHS),
+                    help="model; dense (phi3, qwen2.5, granite-20b, gemma) or ssm (mamba2-370m)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)

@@ -1,18 +1,22 @@
-"""The dense decoder-only LM of the serving path: prefill and decode.
+"""The decoder-only LM of the serving path: prefill and decode.
 
-Counterpart of the dense subset of ``repro.models.transformer`` (phi3,
-qwen2.5 with its QKV bias, granite-20b's MQA, gemma's GeGLU and wide
-heads).  Parameters are a ``ParamNode`` tree whose names are the
-reference's paths (``layer_{i}.attn.wq``, ...) in the reference's
+Counterpart of the dense and ssm subsets of ``repro.models.transformer``
+(phi3, qwen2.5 with its QKV bias, granite-20b's MQA, gemma's GeGLU and
+wide heads; mamba2's attention-free stack).  Parameters are a
+``ParamNode`` tree whose names are the reference's paths
+(``layer_{i}.attn.wq``, ``layer_{i}.mamba.wx``, ...) in the reference's
 orientation (``x @ w``), so ``repro_torch.convert`` copies a reference
-parameter tree key for key.  Prefill attention runs through kernel B4,
-one launch per layer; decode attention through kernel B5, one launch per
-layer and token.  The other families (moe, hybrid, ssm, vlm, audio) raise
-``NotImplementedError``.
+parameter tree key for key.  A layer is attention or Mamba-2 as
+``cfg.is_attn_layer`` says, with a dense MLP after it when ``d_ff > 0``.
+Prefill attention runs through kernel B4 and the Mamba-2 SSD through
+kernel B6, one launch per layer each; decode attention through kernel B5,
+one launch per layer and token.  The other families (moe, hybrid, vlm,
+audio) raise ``NotImplementedError``.
 
 Decode keeps the position as a host ``int`` and writes the new K/V rows
 into the cache in place (the reference's ``dynamic_update_slice`` returns
 a new cache; here the returned ``DecodeCache`` holds the same tensors).
+A Mamba-2 layer's cache is replaced by a new ``MambaCache`` each step.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve
+from repro_torch.models import mamba2
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (
     ParamNode,
@@ -39,14 +44,14 @@ from repro_torch.models.layers import (
     norm_schema,
 )
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "ssm")
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port runs "
-            f"the dense family only")
+            f"the {' and '.join(SUPPORTED_FAMILIES)} families only")
 
 
 # --------------------------------------------------------------------------
@@ -70,20 +75,23 @@ def _attn_schema(cfg: ModelConfig) -> Schema:
     return s
 
 
-def _decoder_layer_schema(cfg: ModelConfig) -> Schema:
-    return {
-        "norm1": norm_schema(cfg.norm, cfg.d_model),
-        "attn": _attn_schema(cfg),
-        "norm2": norm_schema(cfg.norm, cfg.d_model),
-        "mlp": mlp_schema(cfg.d_model, cfg.d_ff, cfg.mlp),
-    }
+def _decoder_layer_schema(cfg: ModelConfig, layer: int) -> Schema:
+    s: Schema = {"norm1": norm_schema(cfg.norm, cfg.d_model)}
+    if cfg.is_attn_layer(layer):
+        s["attn"] = _attn_schema(cfg)
+    else:
+        s["mamba"] = mamba2.mamba_schema(cfg.d_model, cfg.ssm)
+    if cfg.d_ff > 0:
+        s["norm2"] = norm_schema(cfg.norm, cfg.d_model)
+        s["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff, cfg.mlp)
+    return s
 
 
 def backbone_schema(cfg: ModelConfig) -> Schema:
-    require_dense(cfg)
+    require_ported(cfg)
     s: Schema = {"embed": embed_schema(cfg.vocab, cfg.d_model)}
     for i in range(cfg.num_layers):
-        s[f"layer_{i}"] = _decoder_layer_schema(cfg)
+        s[f"layer_{i}"] = _decoder_layer_schema(cfg, i)
     s["norm_f"] = norm_schema(cfg.norm, cfg.d_model)
     return s
 
@@ -129,15 +137,20 @@ def _self_attention(p, x_norm: torch.Tensor, cfg: ModelConfig, run: RunConfig, *
 
 
 def _ffn(pl, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Post-attention dense MLP sublayer, with residual."""
+    """Post-mixer dense MLP sublayer, with residual; none when d_ff = 0."""
+    if "mlp" not in pl:
+        return x
     h = apply_norm(cfg.norm, pl["norm2"], x)
     return x + apply_mlp(pl["mlp"], h, cfg.mlp)
 
 
-def _decoder_layer(pl, x: torch.Tensor, cfg: ModelConfig, run: RunConfig, *,
+def _decoder_layer(pl, x: torch.Tensor, cfg: ModelConfig, run: RunConfig, layer: int, *,
                    positions: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, pl["norm1"], x)
-    x = x + _self_attention(pl["attn"], h, cfg, run, causal=True, positions=positions)
+    if cfg.is_attn_layer(layer):
+        x = x + _self_attention(pl["attn"], h, cfg, run, causal=True, positions=positions)
+    else:
+        x = x + mamba2.apply_mamba(pl["mamba"], h, cfg.ssm)
     return _ffn(pl, x, cfg)
 
 
@@ -155,13 +168,13 @@ def forward_lm(params, batch: dict, cfg: ModelConfig, run: RunConfig, *,
     """Causal LM forward → logits [B, S, V] ([B, 1, V] with ``last_only``).
     ``batch["tokens"]`` int[B, S]; modes ``train`` and ``prefill`` run the
     same forward (no remat or sequence sharding in the port)."""
-    require_dense(cfg)
+    require_ported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     x = embed_tokens(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.num_layers):
-        x = _decoder_layer(params[f"layer_{i}"], x, cfg, run, positions=positions)
+        x = _decoder_layer(params[f"layer_{i}"], x, cfg, run, i, positions=positions)
     x = apply_norm(cfg.norm, params["norm_f"], x)
     if last_only:
         x = x[:, -1:]              # only the next-token position matters
@@ -177,18 +190,21 @@ class DecodeCache(NamedTuple):
     same for every sequence of the batch), a host int.  The reference's
     ``cross`` (encoder-decoder caches) has no use in the dense family."""
 
-    layers: tuple          # per layer: KVCache
+    layers: tuple          # per layer: KVCache (attention) or MambaCache (Mamba-2)
     pos: int
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       device=None) -> DecodeCache:
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    layers = tuple(KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                           v=torch.zeros(shape, dtype=dtype, device=dev))
-                   for _ in range(cfg.num_layers))
+    hd = cfg.resolved_head_dim if cfg.num_heads else 0
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    layers = tuple(
+        KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                v=torch.zeros(shape, dtype=dtype, device=dev))
+        if cfg.is_attn_layer(i) else mamba2.init_cache(batch, cfg.d_model, cfg.ssm, dtype, dev)
+        for i in range(cfg.num_layers))
     return DecodeCache(layers=layers, pos=0)
 
 
@@ -196,27 +212,36 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def forward_decode(params, token: torch.Tensor, cache: DecodeCache, cfg: ModelConfig,
                    run: RunConfig) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step: token int[B, 1] → (logits [B, V], the cache
-    one position longer).  The new K/V rows are written in place."""
-    require_dense(cfg)
+    one position longer).  The new K/V rows are written in place; a Mamba-2
+    layer's cache is replaced."""
+    require_ported(cfg)
     b = token.shape[0]
     pos = cache.pos
-    if pos >= cache.layers[0].k.shape[1]:
-        raise ValueError(f"decode cache full: position {pos} of {cache.layers[0].k.shape[1]}")
+    kv_len = next((c.k.shape[1] for c in cache.layers if isinstance(c, KVCache)), None)
+    if kv_len is not None and pos >= kv_len:
+        raise ValueError(f"decode cache full: position {pos} of {kv_len}")
     x = embed_tokens(params, token, cfg)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    layers = []
     for i in range(cfg.num_layers):
         pl = params[f"layer_{i}"]
         h = apply_norm(cfg.norm, pl["norm1"], x)
-        q, k_new, v_new = _qkv(pl["attn"], h, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta)
-        kc: KVCache = cache.layers[i]
-        kc.k[:, pos:pos + 1] = k_new.to(kc.k.dtype)
-        kc.v[:, pos:pos + 1] = v_new.to(kc.v.dtype)
-        o = decode_attention(q, kc.k, kc.v, cache_len=cache_len)
-        x = x + o.reshape(b, 1, -1) @ pl["attn"]["wo"]
+        if cfg.is_attn_layer(i):
+            q, k_new, v_new = _qkv(pl["attn"], h, cfg)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k_new = apply_rope(k_new, positions, cfg.rope_theta)
+            kc: KVCache = cache.layers[i]
+            kc.k[:, pos:pos + 1] = k_new.to(kc.k.dtype)
+            kc.v[:, pos:pos + 1] = v_new.to(kc.v.dtype)
+            o = decode_attention(q, kc.k, kc.v, cache_len=cache_len)
+            x = x + o.reshape(b, 1, -1) @ pl["attn"]["wo"]
+            layers.append(kc)
+        else:
+            y, mc = mamba2.apply_mamba_decode(pl["mamba"], h, cache.layers[i], cfg.ssm)
+            x = x + y
+            layers.append(mc)
         x = _ffn(pl, x, cfg)
     x = apply_norm(cfg.norm, params["norm_f"], x)
     logits = apply_unembed(params["embed"], x)[:, 0]
-    return logits, DecodeCache(layers=cache.layers, pos=pos + 1)
+    return logits, DecodeCache(layers=tuple(layers), pos=pos + 1)

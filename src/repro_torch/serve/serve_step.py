@@ -1,9 +1,9 @@
-"""Serving steps: prefill and greedy decode of the dense LM.
+"""Serving steps: prefill and greedy decode of the LM (dense and ssm families).
 
 Counterpart of ``repro.serve.serve_step``'s ``build_prefill_step`` and
 ``build_decode_step``, with the same returns: prefill gives the
 next-token logits of the prompt's last position (and, as in the
-reference, no KV cache), decode one greedy token against the cache.
+reference, no decode cache), decode one greedy token against the cache.
 ``build_detect_step`` comes with a later slice.
 """
 from __future__ import annotations

@@ -6,6 +6,8 @@ and PyTorch alone:
 
 Without a card they skip (the kernels have no CPU mode).
 """
+import math
+
 import pytest
 import torch
 
@@ -15,6 +17,8 @@ from repro_torch.kernels.flash_decode.kernel import flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
 from repro_torch.kernels.iou_match.ref import iou_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
 from repro_torch.kernels.thompson.ref import thompson_ref
 
@@ -151,3 +155,77 @@ def test_flash_decode_kernel_equals_plain(card, b, h, kv, d, t, dtype):
     mean = vc[0].float().mean(dim=0).repeat_interleave(h // kv, dim=0)
     rtol, atol = ATTN_TOL[dtype]
     torch.testing.assert_close(out[0].float(), mean.to(dtype).float(), rtol=rtol, atol=atol)
+
+
+# B6 against its plain version: both float32, summing in other orders; the
+# chunk's cumulative log-decay is summed in float64 by both, so only the
+# float32 products and sums differ
+SSD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,decay", [
+    (2, 512, 8, 64, 128, 256, "strong"),     # mamba2's own chunk of 256
+    (3, 128, 1, 16, 32, 32, "strong"),       # the reference's kernel test's widths, BH as B
+    (1, 200, 4, 32, 64, 100, "strong"),      # chunk not a multiple of the 64-row tile
+    (2, 4096, 8, 64, 128, 1024, "weak"),     # serve widths, 4 chunks, nothing underflows
+])
+def test_ssd_scan_kernel_equals_plain(card, b, s, h, p, n, chunk, decay):
+    """dt after softplus of a normal ("strong": exp(acs) underflows within
+    ~50 positions at a = -e) or log-uniform in [1e-3, 0.1], Mamba-2's dt
+    init, with a near -1 ("weak": every tile pair and every chunk's state
+    carries weight, so a tile skipped shows)."""
+    g = torch.Generator().manual_seed(b * 1000 + s + h + p + n)
+    if decay == "weak":
+        dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(b, s, h, generator=g))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g))
+    x = torch.randn(b, s, h, p, generator=g)
+    bc = 0.3 * torch.randn(b, s, 2 * n, generator=g)
+    a = -torch.exp(0.3 * torch.randn(h, generator=g))
+    if decay == "weak":
+        q = min(chunk, s)
+        assert (torch.exp((dt * a).reshape(b, s // q, q, h).sum(dim=2)) > 0).all()
+    x, dt, bc, a = (t.to(card) for t in (x, dt, bc, a))
+    bm, cm = bc[..., :n], bc[..., n:]                  # read in place, as the model's split
+    before = ssd_scan.launches
+    y, hs = ssd_scan(x, dt, bm, cm, a, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    ry, rh = ssd_ref(x, dt, bm, cm, a, chunk=chunk)
+    assert y.shape == x.shape and hs.shape == rh.shape == (b, h, p, n)
+    torch.testing.assert_close(y, ry, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(hs, rh, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_refuses_what_it_cannot_run(card):
+    x = torch.randn(1, 64, 2, 68, device=card)       # P above 64
+    dt = torch.ones(1, 64, 2, device=card)
+    bm = torch.randn(1, 64, 16, device=card)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan(x, dt, bm, bm, -torch.ones(2, device=card), chunk=32)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ssd_scan(x[..., :64], dt, bm, bm, -torch.ones(2, device=card), chunk=48)
+
+
+def test_reduced_mamba2_on_the_card_equals_the_cpu(card):
+    """The reduced mamba2-370m served on the card (B6 in the prefill)
+    equals the same on the CPU: tokens, logits and every layer's cache
+    within 1e-4."""
+    from repro_torch import convert
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cfg = launcher.model_config("mamba2-370m", reduced=True, device=card)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=card)
+    prompt = launcher.make_prompt(cfg, 2, 64, "cpu")
+    before = ssd_scan.launches
+    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(card)}, 8,
+                         keep_logits=True)
+    assert ssd_scan.launches == before + cfg.num_layers
+    ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
+    assert torch.equal(gpu.tokens.cpu(), ref.tokens)
+    pairs = [(gpu.prefill_logits, ref.prefill_logits)] + list(zip(gpu.step_logits, ref.step_logits))
+    for a, b in zip(gpu.cache.layers, ref.cache.layers):
+        pairs += [(a.conv, b.conv), (a.ssm, b.ssm)]
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

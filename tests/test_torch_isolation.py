@@ -42,6 +42,9 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
     assert {"core", "kernels", "serve", "sim", "launch", "models", "configs"} <= scanned
+    modules = {p.relative_to(PKG).as_posix() for p in _modules()}
+    assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
+            "kernels/ssd_scan/ref.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -75,6 +78,8 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "phi3-medium-14b", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "phi3-medium-14b", "--reduced", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "mamba2-370m", "--tokens", "1"])
     assert resolve("cpu").type == "cpu"
 
 
