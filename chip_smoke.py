@@ -5,7 +5,8 @@ search on the CPU, then serve the full-width phi3-medium-14b LM (prefill
 through kernel B4, greedy decode through kernel B5) and the full-width
 mamba2-370m (prefill through kernel B6, the SSD chunk scan), hold each
 one's decode to teacher forcing, and each reduced LM on the card to the
-same on the CPU.
+same on the CPU; last, prefill phi3-medium-14b in bfloat16 at full depth,
+whose attention runs on B4's tensor-core ("wgmma") body.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,7 +68,9 @@ SERVE_CELLS = {
 # above 2e-2
 ATTN_ATOL, ATTN_CAP = 1e-4, 2e-2
 ATTN_RTOL = {"float32": 0.0, "bfloat16": 8e-3}
-# (B, S, T, H, KV, d, dtype, causal); the first is the serve path's prefill
+# (B, S, T, H, KV, d, dtype, causal); the first is the serve path's prefill,
+# the fourth the bf16 prefill's.  bfloat16 with d a multiple of 16 up to 128
+# runs on B4's "wgmma" body, the rest on "simt" (kernel.select_body)
 B4_SHAPES = (
     (4, 2048, 2048, 40, 10, 128, "float32", True),
     (1, 2048, 2048, 40, 10, 128, "float32", True),
@@ -74,7 +80,16 @@ B4_SHAPES = (
     (1, 1000, 1000, 40, 10, 128, "float32", True),       # ragged
     (1, 1000, 1000, 40, 10, 128, "float32", False),
     (1, 256, 1024, 40, 10, 128, "float32", True),        # S != T: the top-left rule
+    (1, 1000, 1000, 40, 10, 128, "bfloat16", True),      # ragged, on the tensor cores
+    (1, 1000, 1000, 40, 10, 128, "bfloat16", False),
+    (1, 256, 1024, 40, 10, 128, "bfloat16", True),
+    (1, 2048, 2048, 16, 8, 64, "bfloat16", True),        # granite-moe's heads
+    (1, 2048, 2048, 32, 32, 96, "bfloat16", True),       # phi3-vision's heads
 )
+# the dense prefill in bfloat16 (the reference's default param_dtype): one
+# prompt of 8,192 tokens, so each layer's attention is B4_SHAPES[3]; all
+# 40 layers (28.3 GB of bf16 weights)
+BF16_PREFILL = dict(arch="phi3-medium-14b", batch=1, prompt=8192, reduced_prompt=64)
 # (B, H, KV, d, T, dtype, cache_len per sequence); the first is the serve
 # path's last decode step (64 tokens in a cache of 2048 + 64 + 1)
 B5_SHAPES = (
@@ -165,6 +180,51 @@ def bits_equal(x, y) -> bool:
     if x.dtype == torch.float32:
         return torch.equal(x.view(torch.int32), y.view(torch.int32))
     return torch.equal(x, y)
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Per kernel in nvcc's ``-Xptxas -v`` log: its (mangled) name,
+    registers and spill bytes."""
+    entries = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append(dict(name=m.group(1), registers=None, spill_stores=None, spill_loads=None))
+        elif entries and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entries[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif entries and (m := re.search(r"Used (\d+) registers", line)):
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
+def sass_count(lib: str, opcode: str) -> int | None:
+    """How many instructions of ``opcode`` the library's SASS holds
+    (``cuobjdump -sass``); None when the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                     "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    return sum(line.split()[1].startswith(opcode) for line in sass.splitlines()
+               if line.strip().startswith("/*") and len(line.split()) > 1)
+
+
+def check_b4_build(info: dict) -> None:
+    """B4's tensor-core body as built: ptxas reports it without spills, and
+    its SASS holds HGMMA instructions (where cuobjdump is there to say)."""
+    bodies = [e for e in ptxas_entries(info["log"]) if "flash_attention_wgmma" in e["name"]]
+    if not bodies:
+        fail("ptxas reported no kernel of B4's wgmma body")
+    for e in bodies:
+        width = re.search(r"ILi(\d+)E", e["name"])
+        print(f"  B4 wgmma body, d = {width.group(1) if width else '?'}: {e['registers']} registers, "
+              f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
+        if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+            fail(f"B4's wgmma body spills or went unreported: {e}")
+    hgmma = sass_count(info["path"], "HGMMA")
+    if hgmma == 0:
+        fail("B4's library holds no HGMMA instruction: the wgmma body is not on the tensor cores")
+    print(f"  B4 library: {'not checked (no cuobjdump)' if hgmma is None else hgmma} HGMMA instructions")
 
 
 # ----------------------------------------------------------------- kernels
@@ -404,9 +464,14 @@ def check_attention_kernels(torch, rows) -> None:
     for b, s, t, h, kv, d, dtype, causal in B4_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(b * s + t + h + d)
         q, k, v = randn(g, (b, s, h, d), dtype), randn(g, (b, t, kv, d), dtype), randn(g, (b, t, kv, d), dtype)
+        before = dict(flash_attention.launches_by_body)
         out = flash_attention(q, k, v, causal=causal)
         ref = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        body = [n for n, c in flash_attention.launches_by_body.items() if c != before[n]]
+        want = "wgmma" if dtype == "bfloat16" and d % 16 == 0 and d <= 128 else "simt"
+        if body != [want]:
+            fail(f"flash_attention at {(b, s, t, h, kv, d, dtype, causal)} ran body {body}, expected {want}")
         err, mag, worst = attn_compare(out, ref, dtype)
         if not worst <= 1.0:
             fail(f"flash_attention != plain at {(b, s, t, h, kv, d, dtype, causal)}: max |diff| {err}, "
@@ -426,14 +491,16 @@ def check_attention_kernels(torch, rows) -> None:
                         ops_per_s=F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S,
                         shape=[b, s, t, h, kv, d], dtype=dtype, causal=causal,
                         bytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(), ops=ops,
-                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend)
+                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend,
+                        body=want)
         rows[("flash_attention", b, s, t, h, kv, d, dtype, causal)] = row
         print(f"  flash_attention (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {dtype} "
-              f"{'causal' if causal else 'full'}: max |diff| {err:.3g} (mean |ref| {mag:.3g}, "
+              f"{'causal' if causal else 'full'} [{want}]: max |diff| {err:.3g} (mean |ref| {mag:.3g}, "
               f"largest |diff| / limit {worst:.3g}); " + describe(row)
               + f"; SDPA backend {backend} ({', '.join(n[:60] for n in names[:3])})")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    print(f"  B4 launches by body in this phase (comparisons and timing): {flash_attention.launches_by_body}")
 
     for b, h, kv, d, t, dtype, lens in B5_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(b * h + kv + d + t)
@@ -496,6 +563,8 @@ def kernel_fns() -> dict:
 def reset_launches() -> None:
     for fn in kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_body"):
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
 
 
 def read_launches() -> dict:
@@ -853,7 +922,7 @@ def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
     """Inside the host span of the ``range_name`` range: the device's busy
     time and idle share, the busy time of kernels whose name holds
     ``kernel_key`` (none when None) and of the cuBLAS products (names
-    holding "gemm" or "gemv"), and the runtime calls that launch or wait."""
+    holding "gemm", "gemv" or "nvjet"), and the runtime calls that launch or wait."""
     from torch.autograd import DeviceType
 
     span = [e for e in prof.events() if e.name == range_name and e.device_type == DeviceType.CPU][0]
@@ -864,7 +933,7 @@ def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
         busy += overlap
         if kernel_key is not None and kernel_key in e.name:
             key += overlap
-        elif "gemm" in e.name or "gemv" in e.name:
+        elif "gemm" in e.name or "gemv" in e.name or "nvjet" in e.name:
             gemm += overlap
     inside = [e for e in prof.events() if e.device_type == DeviceType.CPU
               and lo <= e.time_range.start and e.time_range.end <= hi]
@@ -1037,6 +1106,100 @@ def reduced_serve(torch, family: str) -> None:
           f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)")
 
 
+def bf16_prefill_path(torch) -> tuple[dict, dict]:
+    """The dense prefill in bfloat16 through the launcher's prefill step:
+    ``BF16_PREFILL``'s arch at full width and depth, one long prompt,
+    so that each layer's attention is B4's "wgmma" body at B4_SHAPES[3].
+    Checks the logits (shape, finite) and that each layer launched that
+    body once and nothing else ran; profiles the prefill.  Returns the
+    body's launches (as "flash_attention_wgmma") and the metrics."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cell = BF16_PREFILL
+    cuda = torch.device("cuda")
+    run = RunConfig(param_dtype="bfloat16")
+    cfg = launcher.model_config(cell["arch"], reduced=False, device=cuda)
+    b, prompt = cell["batch"], cell["prompt"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
+    n_params = sum(p.numel() for p in params.parameters())
+    prefill = launcher.build_prefill_step(cfg, run)
+    prefill(params, launcher.make_prompt(cfg, b, 128, cuda))          # warm cuBLAS' bf16 kernels
+    batch = launcher.make_prompt(cfg, b, prompt, cuda)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    by_body = dict(flash_attention.launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (b, cfg.vocab) or logits.dtype != torch.bfloat16 or not bool(torch.isfinite(logits).all()):
+        fail(f"bf16 prefill: logits {tuple(logits.shape)} {logits.dtype}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if launches != {"flash_attention": cfg.num_layers} or by_body != {"simt": 0, "wgmma": cfg.num_layers}:
+        fail(f"bf16 prefill: launches {launches}, by body {by_body}; expected {cfg.num_layers} of 'wgmma'")
+    tok_s = b * prompt / secs
+    print(f"  {cfg.num_layers} layers, {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB bf16); prefill [{b}x{prompt}] "
+          f"{secs * 1e3:.1f} ms = {tok_s:.1f} tokens/s; launches {launches}, B4 by body {by_body}; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; logits finite, max |logit| "
+          f"{float(logits.float().abs().max()):.4g}")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        with record_function("serve.prefill"):
+            prefill(params, batch)
+            torch.cuda.synchronize()
+    pre = device_share(prof, "serve.prefill", "flash_attention_wgmma")
+    print(f"profile: bf16 prefill span {pre['span_ms']:.1f} ms, device busy {pre['busy_ms']:.1f} ms "
+          f"(idle {100 * pre['idle']:.1f}%); cuBLAS products {pre['gemm_ms']:.1f} ms = "
+          f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}%; B4 wgmma {pre['kernel_ms']:.1f} ms = "
+          f"{100 * pre['kernel_share']:.1f}% ({pre['kernel_ms'] / cfg.num_layers:.3f} ms a layer); the rest "
+          f"{pre['busy_ms'] - pre['gemm_ms'] - pre['kernel_ms']:.1f} ms")
+    metrics = dict(arch=cell["arch"], layers=cfg.num_layers, params=n_params, batch=b, prompt=prompt,
+                   prefill_ms=secs * 1e3, prefill_tok_s=tok_s, max_memory_allocated=peak,
+                   by_body=by_body, prefill_profile=pre)
+    del params, logits, prof
+    torch.cuda.empty_cache()
+    return {"flash_attention_wgmma": by_body["wgmma"]}, metrics
+
+
+def reduced_bf16_prefill(torch) -> None:
+    """The reduced dense LM's bfloat16 prefill (head dim 16: B4's "wgmma"
+    body) on the card against the same on the CPU (B4's plain version):
+    logits within 2e-2 x max |logits|, the bf16 tolerance of the layer
+    tests, since the two round each bf16 product and sum at other places."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    run = RunConfig(param_dtype="bfloat16")
+    cfg = launcher.model_config(BF16_PREFILL["arch"], reduced=True, device=cuda)
+    params = init_params(cfg, seed=0, dtype=run.dtype(), device=cpu)
+    prompt = launcher.make_prompt(cfg, 2, BF16_PREFILL["reduced_prompt"], cpu)
+    prefill = launcher.build_prefill_step(cfg, run)
+    ref = prefill(params, prompt).float()
+    before = flash_attention.launches_by_body["wgmma"]
+    gpu = prefill(params.to(cuda), {"tokens": prompt["tokens"].to(cuda)}).float().cpu()
+    ran = flash_attention.launches_by_body["wgmma"] - before
+    diff, scale = float((gpu - ref).abs().max()), float(ref.abs().max())
+    if ran != cfg.num_layers or not diff <= 2e-2 * scale:
+        fail(f"reduced bf16 prefill: card != CPU (wgmma launches {ran} of {cfg.num_layers}, max |diff| "
+             f"{diff}, limit 2e-2 x {scale})")
+    print(f"  reduced {BF16_PREFILL['arch']} (head dim {cfg.resolved_head_dim}, {cfg.num_layers} layers), "
+          f"bf16 prefill, card ('wgmma' x {ran}) == CPU: max |diff| {diff:.4g} = {diff / scale:.3g} x max "
+          f"|logits| {scale:.4g} (limit 2e-2)")
+
+
 def main() -> int:
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -1064,6 +1227,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    check_b4_build(built["flash_attention"])
 
     print("kernels vs plain versions on the card:")
     rows = check_kernels(torch)
@@ -1106,8 +1270,12 @@ def main() -> int:
               f"prompt {cell['prompt']}, {cell['tokens']} greedy tokens:")
         serve_launches[family], serve_metrics[family] = serve_path(torch, family)
         reduced_serve(torch, family)
+    print(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
+    bf16_launches, bf16_metrics = bf16_prefill_path(torch)
+    reduced_bf16_prefill(torch)
 
     summary = []
+    b4_src, b4_tpu = "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:91"
     for kname, key, src, replaces, launches in (
         ("thompson_choose", ("thompson_choose", 50, 1000), "src/repro_torch/csrc/thompson_choose.cu",
          "src/repro/kernels/thompson/kernel.py:73", scan_launches),
@@ -1118,8 +1286,8 @@ def main() -> int:
          "src/repro/kernels/iou_match/kernel.py:37", scan_launches),
         ("iou_matrix_batched", ("iou_matrix_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
          "src/repro/kernels/iou_match/kernel.py:37", multi_launches),
-        ("flash_attention", ("flash_attention", *B4_SHAPES[0]), "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:91", serve_launches["dense"]),
+        ("flash_attention", ("flash_attention", *B4_SHAPES[0]), b4_src, b4_tpu, serve_launches["dense"]),
+        ("flash_attention_wgmma", ("flash_attention", *B4_SHAPES[3]), b4_src, b4_tpu, bf16_launches),
         ("flash_decode", ("flash_decode", *B5_SHAPES[0][:6]), "src/repro_torch/csrc/flash_decode.cu",
          "src/repro/kernels/flash_decode/kernel.py:71", serve_launches["dense"]),
         ("ssd_scan", ("ssd_scan", *B6_SHAPES[0]),
@@ -1134,9 +1302,13 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
-    print(json.dumps({"serve": serve_metrics["dense"], "serve_ssm": serve_metrics["ssm"]}))
+        if "body" in row:
+            summary[-1].update(body=row["body"], dtype=row["dtype"])
+    print(json.dumps({"serve": serve_metrics["dense"], "serve_ssm": serve_metrics["ssm"],
+                      "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
-                                   "serve": serve_launches["dense"], "serve_ssm": serve_launches["ssm"]}}))
+                                   "serve": serve_launches["dense"], "serve_ssm": serve_launches["ssm"],
+                                   "prefill_bf16": bf16_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,33 +10,74 @@
 // (float32 or bfloat16), the output in the input type, and the final
 // division by max(l, 1e-30) as in the TPU kernel.  The causal rule is the
 // TPU kernel's (row >= column, counted from the top left), also when the
-// query and key lengths differ.
+// query and key lengths differ.  Keys at or past T get weight 0 (-inf).
 //
-// Design: one block of 128 threads per (query tile of BQ rows, batch*head).
-// q, k and v are read in their [B, S, H, d] / [B, T, KV, d] layouts through
-// their strides, so nothing is transposed or repeated in device memory.  The
-// block stages its Q tile once, then walks the K/V tiles in order: each is
-// staged in shared memory (converted to float32), the BQ x BK scores go to
-// shared memory, one thread per row updates that row's running maximum and
-// sum and leaves exp(s - m) in place, and every thread rescales and adds to
-// its 4 rows x DMAX/CG output columns held in registers.  Causal blocks skip
-// the K/V tiles wholly above the diagonal (first column > last row of the
-// tile), as the TPU kernel does; the heaviest query tiles are scheduled
-// first.  Ragged S and T are handled by bounds: rows past S are computed on
-// zeros and never written, columns past T get weight 0.  Q and K rows are
-// stored with an odd stride (d + 1) so the score loop reads shared memory
-// without bank conflicts.  d must be a multiple of 8 (16-byte loads) and at
-// most 256; the tile shapes are chosen by d's bucket (64, 128, 256).
+// Two bodies, chosen by the caller from (dtype, d) before the launch and
+// passed in as ``body``; the entry point refuses a body that cannot take
+// the shape.  Both keep the TPU kernel's arithmetic: P is float32 there
+// (kernel.py:54, 74-75), so neither rounds it to bfloat16 alone.
 //
-// Bound on the H100: at the serve path's prefill (B, S, H, KV, d) =
-// (4, 2048, 40, 10, 128), causal, float32, one launch reads q, k, v once and
-// writes out (4*2048*(40+10+10+40)*128*4 B = 419 MB, 0.13 ms at 3.35 TB/s)
+// "simt" (body 0): float32, and bfloat16 with d not a multiple of 16 or
+// above 128.  One block of 128 threads per (query tile of BQ rows,
+// batch*head).  q, k and v are read in their [B, S, H, d] / [B, T, KV, d]
+// layouts through their strides, so nothing is transposed or repeated in
+// device memory.  The block stages its Q tile once, then walks the K/V
+// tiles in order: each is staged in shared memory (converted to float32),
+// the BQ x BK scores go to shared memory, one thread per row updates that
+// row's running maximum and sum and leaves exp(s - m) in place, and every
+// thread rescales and adds to its 4 rows x DMAX/CG output columns held in
+// registers.  Causal blocks skip the K/V tiles wholly above the diagonal
+// (first column > last row of the tile), as the TPU kernel does; the
+// heaviest query tiles are scheduled first.  Ragged S and T are handled by
+// bounds: rows past S are computed on zeros and never written, columns past
+// T get weight 0.  Q and K rows are stored with an odd stride (d + 1) so the
+// score loop reads shared memory without bank conflicts.  d must be a
+// multiple of 8 (16-byte loads) and at most 256; the tile shapes are chosen
+// by d's bucket (64, 128, 256).  Bound on the H100: at the serve path's
+// prefill (B, S, H, KV, d) = (4, 2048, 40, 10, 128), causal, float32, one
+// launch reads q, k, v once and writes out (419 MB, 0.13 ms at 3.35 TB/s)
 // and does 4*d flops per live (row, column) pair (1.72e11 flops, 2.57 ms at
-// 67 TFLOP/s of float32): it is bound by arithmetic.  This first version
-// runs that arithmetic as float32 FMAs on the CUDA cores, not on the tensor
-// cores (no wgmma, no TMA); making it fast is later work.
+// 67 TFLOP/s of float32): it is bound by arithmetic, which this body runs
+// as float32 FMAs on the CUDA cores.
+//
+// "wgmma" (body 1): bfloat16 with d a multiple of 16 up to 128, on the
+// tensor cores.  One block of two warpgroups (256 threads) per (128 query
+// rows, batch*head), each warpgroup owning 64 rows (wgmma's M); the same
+// schedule, causal skip and GQA by index as "simt", and a warpgroup skips a
+// causal tile wholly above its own rows.  The Q tile is staged once and K/V
+// tiles of 64 keys, shared by both warpgroups, go through a 2-stage ring,
+// all with 16-byte cp.async.cg copies written straight into wgmma's
+// no-swizzle (INTERLEAVE) layout: the chunk of 8 values at (row r, chunk c)
+// lands at ((r/8)*C + c)*128 + (r%8)*16, C chunks a row; rows past S or T
+// are zero-filled (V too: p = 0 times a stale NaN is NaN).
+//   S = Q.K^T: d/16 wgmma m64n64k16, A and B from shared memory, both
+//     K-major (d contiguous as stored); bf16 x bf16 products are exact and
+//     summed in float32.
+//   Softmax on the accumulator fragments: a thread holds 2 rows x 16
+//     columns, so row maxima take two shuffles across its quad.  exp is
+//     ex2.approx with log2(e) folded into the scale: p = 2^(s*scale*log2e
+//     - m), which differs from exp(s*scale - m) by the rounding of
+//     scale*log2e (2^-24 relative) and ex2's 2 ulp, far below the output's
+//     bf16 half-ulp of 2^-9.
+//   P split: P_hi = bf16(p), P_lo = bf16(p - P_hi), so P_hi + P_lo carries
+//     p to ~2^-17 relative; l sums the float32 p.  Rounding P to bf16 alone
+//     moves the output by up to 16x the card check's limit (the TPU kernel
+//     keeps P in float32); the split costs one more product.
+//   O += P_hi.V + P_lo.V: wgmma m64n{DN}k16 with A from registers (the S
+//     accumulator of columns 16j..16j+15 is, packed as bf16x2, the A
+//     fragment of k-slice j) and V from shared memory as B, MN-major (d
+//     contiguous) with the transpose bit.  DN is d rounded up to 32, 64, 96
+//     or 128; V's columns d..DN-1 stay zero.  O is float32 in registers.
+// Shared memory: (128*d + 2*64*(d + DN))*2 bytes, 96 KB at d = 128; ptxas
+// gives the block ~170 registers a thread, so one block runs on an SM.
+// Bound on the H100 at (1, 8192, 8192, 40, 10, 128) causal: 6.87e11
+// operations, 0.69 ms at 989 TFLOP/s of bf16; the split issues 1.5x that.
+// Not yet here: TMA copies, a producer warp, the 128-byte swizzle, and
+// overlap of a product with the softmax next to it (the block waits for
+// each product before the softmax that reads it).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -267,25 +308,393 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
   return launch<T, 256>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, stream);
 }
 
+// ------------------------------------------------------------- "wgmma" body
+namespace wg {
+
+constexpr int kGroups = 2;                // consumer warpgroups a block
+constexpr int kWgThreads = 128 * kGroups;
+constexpr int kRows = 64 * kGroups;       // query rows of a block: wgmma's M = 64 a warpgroup
+constexpr int kKeys = 64;                 // keys of a K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// threads' writes to shared memory (cp.async, stores) made visible to the
+// async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Descriptor of a no-swizzle (INTERLEAVE, layout type 0) operand in shared
+// memory: core matrices of 8 rows x 16 bytes, 128 contiguous bytes each;
+// lbo = bytes between core matrices adjacent in K, sbo = adjacent in M or N.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Rows r0 .. r0+ROWS-1 of a [rows, DC*8] bfloat16 view (row stride in
+// elements) into the INTERLEAVE layout with LDC chunks of 16 bytes a row
+// (LDC >= DC): one cp.async.cg per chunk, the 8 rows of a core matrix on
+// neighbouring threads so that a warp writes 512 contiguous bytes.  Rows at
+// or past n_valid are zero-filled.
+template <int ROWS, int DC, int LDC>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const __nv_bfloat16* src,
+                                          long long row_stride, int r0, int n_valid) {
+  constexpr int kChunks = ROWS * DC;
+#pragma unroll
+  for (int n = 0; n < (kChunks + kWgThreads - 1) / kWgThreads; ++n) {
+    const int i = n * kWgThreads + threadIdx.x;
+    if (kChunks % kWgThreads != 0 && i >= kChunks) break;
+    const int r8 = i % 8, c = (i / 8) % DC, g = i / (8 * DC);
+    const int r = g * 8 + r8;
+    unsigned char* p = dst + (g * LDC + c) * 128 + r8 * 16;
+    if (r0 + r < n_valid)
+      cp_async16(p, src + static_cast<long long>(r0 + r) * row_stride + c * 8);
+    else
+      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S,
+                      int Tk, int H, int KV, long long q_sb, long long q_ss, long long q_sh,
+                      long long k_sb, long long k_st, long long k_sh, long long v_sb,
+                      long long v_st, long long v_sh, int causal, float scale_log2) {
+  constexpr int DN = D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128;   // P.V's N
+  constexpr int DC = D / 8, CV = DN / 8;           // 16-byte chunks of a Q/K row, of a V row
+  constexpr int kQBytes = kRows * D * 2, kKBytes = kKeys * D * 2, kVBytes = kKeys * DN * 2;
+  extern __shared__ __align__(128) unsigned char tiles[];
+  unsigned char* sQ = tiles;
+  unsigned char* sK = sQ + kQBytes;                // 2 stages
+  unsigned char* sV = sK + 2 * kKBytes;            // 2 stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = warp / 4;                      // this thread's warpgroup: rows 64*group ..
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest causal tiles first
+  const int gq0 = q0 + 64 * group;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KV);
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+
+  if constexpr (DN > D) {                          // V's columns D..DN-1 stay zero
+    constexpr int kPad = CV - DC;
+    for (int i = tid; i < 2 * kKeys * kPad; i += kWgThreads) {
+      const int stage = i / (kKeys * kPad), j = i % (kKeys * kPad);
+      const int r = j / kPad, c = DC + j % kPad;
+      *reinterpret_cast<uint4*>(sV + stage * kVBytes + ((r / 8) * CV + c) * 128 + (r % 8) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  int n_tiles = (Tk + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kKeys + 1);
+  load_tile<kRows, DC, DC>(sQ, qb, q_ss, q0, S);
+  load_tile<kKeys, DC, DC>(sK, kb, k_st, 0, Tk);
+  load_tile<kKeys, DC, CV>(sV, vb, v_st, 0, Tk);
+  cp_async_commit();
+
+  // Q and K: K-major; chunks c and c+1 (K) 128 B apart, 8-row groups (M or
+  // N) DC*128 B apart.  V: MN-major; 8-key groups (K) CV*128 B apart,
+  // d-chunks (N) 128 B apart.  A warpgroup's 64 Q rows are 8 row groups.
+  const uint32_t q_addr = smem_addr(sQ) + group * 64 * D * 2;
+  const uint32_t k_addr = smem_addr(sK), v_addr = smem_addr(sV);
+  constexpr uint32_t kQKLbo = 128, kQKSbo = DC * 128, kVLbo = CV * 128, kVSbo = 128;
+
+  float o[DN / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int row0 = gq0 + (warp % 4) * 16 + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int t2 = 2 * (lane % 4);                   // and columns 8j + t2, 8j + t2 + 1
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int stage = kt & 1, k0 = kt * kKeys;
+    cp_async_wait_all();                           // this thread's copies of tile kt (and Q)
+    fence_proxy_async();
+    __syncthreads();                               // everyone's; tile kt-1's products are done
+    if (kt + 1 < n_tiles) {                        // into the slot tile kt-1 left
+      load_tile<kKeys, DC, DC>(sK + (stage ^ 1) * kKBytes, kb, k_st, k0 + kKeys, Tk);
+      load_tile<kKeys, DC, CV>(sV + (stage ^ 1) * kVBytes, vb, v_st, k0 + kKeys, Tk);
+      cp_async_commit();
+    }
+    // a causal tile wholly above this warpgroup's rows adds nothing to them
+    if (causal && k0 > gq0 + 63) continue;
+
+    // registers that a wgmma reads are fenced before wgmma.fence, so that no
+    // other instruction writes them inside the product's pipeline stage
+    const uint32_t k_stage = k_addr + stage * kKBytes;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)            // the first overwrites s
+      mma_ss(s, make_desc(q_addr + ks * 256, kQKLbo, kQKSbo),
+             make_desc(k_stage + ks * 256, kQKLbo, kQKSbo), ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s[4j + e]: row row0 + 8*(e/2), column k0 + 8j + t2 + e%2.  Masks and
+    // maxima on the raw scores (the scale is positive); p = 2^(s*c - m)
+    // with m in scaled units, one FMA before the ex2.
+    if (k0 + kKeys > Tk || (causal && k0 + kKeys - 1 > gq0)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + t2 + (e & 1);
+          if (col >= Tk) s[4 * j + e] = __int_as_float(0xff800000);      // -inf: weight 0
+          else if (causal && row0 + 8 * (e >> 1) < col) s[4 * j + e] = kNegInf;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      neg_m[r] = -m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // A fragment of k-slice j, register r: s[8j + 2r] (low half), s[8j + 2r + 1]
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = s[8 * j + 2 * r], c = s[8 * j + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[j][r] = bits(hi);
+        p_lo[j][r] = bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
+      }
+    const uint32_t v_stage = v_addr + stage * kVBytes;
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t dv = make_desc(v_stage + 2 * j * CV * 128, kVLbo, kVSbo);
+      mma_rs(o, p_hi[j], dv);
+      mma_rs(o, p_lo[j], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + t2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                   int H, int KV, const long long* st, int causal, float scale, cudaStream_t stream) {
+  constexpr int DN = D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128;
+  auto kernel = flash_attention_wgmma<D>;
+  constexpr size_t smem = static_cast<size_t>(kRows * D + 2 * kKeys * (D + DN)) * 2;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, Tk, H, KV,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// d a multiple of 16 up to 128, one instantiation each
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                       int H, int KV, int d, const long long* st, int causal, float scale,
+                       cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<16>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 32: return launch<32>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 48: return launch<48>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 64: return launch<64>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 80: return launch<80>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 96: return launch<96>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 112: return launch<112>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    case 128: return launch<128>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
+// body: 0 "simt", 1 "wgmma" (bfloat16, d a multiple of 16 up to 128).
 // dtype: 0 float32, 1 bfloat16.  q [B,S,H,d], k/v [B,T,KV,d] with unit last
 // stride; strides in elements: q (batch, seq, head), k (batch, seq, head),
 // v (batch, seq, head).  out is a contiguous [B,S,H,d] of the same type.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
-                                   int B, int S, int Tk, int H, int KV, int d,
+// Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
+// for a shape or a body it cannot take.
+extern "C" int flash_attention_fwd(int body, int dtype, const void* q, const void* k, const void* v,
+                                   void* out, int B, int S, int Tk, int H, int KV, int d,
                                    long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_st, long long k_sh,
                                    long long v_sb, long long v_st, long long v_sh,
                                    int causal, float scale, void* stream) {
   if (d < 8 || d > 256 || d % 8 != 0 || KV <= 0 || H % KV != 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (body != 0 && body != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1 && (dtype != 1 || d % 16 != 0 || d > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? dispatch_d<float>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s)
-                 : dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
+  cudaError_t err;
+  if (body == 1)
+    err = wg::dispatch_d(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
+  else if (dtype == 0)
+    err = dispatch_d<float>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
+  else
+    err = dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,12 @@
 """ctypes binding of ``csrc/flash_attention.cu`` (kernel B4; see the
 source's note): causal or full GQA attention forward, float32 or
-bfloat16, d a multiple of 8 up to 256."""
+bfloat16, d a multiple of 8 up to 256.
+
+The source has two bodies, and ``select_body`` picks one from the dtype
+and the head dim before the launch: "wgmma" (the tensor cores) for
+bfloat16 with d a multiple of 16 up to 128, "simt" (float32 FMAs on the
+CUDA cores) for everything else.  This is a dispatch by type and width,
+not a fallback: a launch that fails raises."""
 from __future__ import annotations
 
 import ctypes
@@ -13,8 +19,14 @@ from repro_torch.kernels._launch import bind, check_status
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [_I, ctypes.c_float, _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [_I, ctypes.c_float, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = {"simt": 0, "wgmma": 1}
+
+
+def select_body(dtype: torch.dtype, d: int) -> str:
+    """B4's body for inputs of ``dtype`` and head dim ``d``."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "simt"
 
 
 def check_head_dim(d: int) -> None:
@@ -42,10 +54,13 @@ def check_operand(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor) -> 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,H,d]; k, v [B,T,KV,d] (CUDA, one dtype) → [B,S,H,d] in
-    q.dtype.  One launch; counted in ``flash_attention.launches``."""
+    q.dtype, on the body ``select_body(q.dtype, d)``.  One launch; counted
+    in ``flash_attention.launches`` and, per body, in
+    ``flash_attention.launches_by_body``."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     check_head_dim(d)
+    body = select_body(q.dtype, d)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, 4, q)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -62,12 +77,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = bind("flash_attention", "flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, t, h, kv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        rc = fn(BODIES[body], DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), b, s, t, h, kv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(causal), 1.0 / math.sqrt(d), stream)
     check_status("flash_attention", rc)
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -16,8 +16,13 @@ Two behaviours of the reference are pinned here:
   positions, as both the Pallas kernel and ``decode_ref`` do.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` and
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``.  What the CPU can hold of B4's bodies is
+held here: which body a (dtype, d) takes and the numerical
+design of the "wgmma" body (P carried as two bfloat16 halves), emulated
+in float32 against the card check's gate.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +33,10 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.flash_decode.kernel import flash_decode as j_flash_decode
 from repro.kernels.flash_decode.ref import decode_ref as j_decode_ref
 from repro.models import attention as j_attn
+from repro_torch.configs import ARCHS
 from repro_torch.kernels.flash_attention import kernel as t_fa_kernel
 from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref as t_attention_ref
 from repro_torch.kernels.flash_decode import kernel as t_fd_kernel
 from repro_torch.kernels.flash_decode import ops as t_fd_ops
 from repro_torch.models import attention as t_attn
@@ -177,3 +184,83 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
     t_fa_ops.attention(q, q, q)
     t_fd_ops.decode(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
     assert (t_fa_kernel.flash_attention.launches, t_fd_kernel.flash_decode.launches) == before
+
+
+# ------------------------------------------------------- B4's two bodies
+@pytest.mark.parametrize("dtype,d,body", [
+    (torch.bfloat16, 128, "wgmma"),     # phi3-medium, granite-20b, qwen2.5-32b, dbrx
+    (torch.bfloat16, 96, "wgmma"),      # phi3-vision
+    (torch.bfloat16, 64, "wgmma"),      # whisper-base, granite-moe
+    (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 48, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 40, "simt"),       # a multiple of 8 only
+    (torch.bfloat16, 136, "simt"),
+    (torch.bfloat16, 256, "simt"),      # gemma-7b
+    (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt"),
+])
+def test_body_selection_table(dtype, d, body):
+    assert t_fa_kernel.select_body(dtype, d) == body
+
+
+def test_every_registered_head_width_takes_the_tensor_cores_in_bfloat16_but_gemma():
+    widths = {name: cfg.resolved_head_dim for name, cfg in ARCHS.items() if cfg.num_heads}
+    simt = {name for name, d in widths.items() if t_fa_kernel.select_body(torch.bfloat16, d) == "simt"}
+    assert simt == {"gemma-7b"}
+    assert all(t_fa_kernel.select_body(torch.float32, d) == "simt" for d in widths.values())
+
+
+def _tiled_attention(q, k, v, *, split_p: bool, tile: int = 64):
+    """The "wgmma" body's arithmetic in float32 on the CPU: K/V tiles of 64
+    keys, an online softmax in float32 (the top-left causal rule), bf16 ×
+    bf16 products summed in float32, and P = exp(s − m) rounded to bfloat16
+    once (``split_p=False``) or carried as P_hi + P_lo, two bfloat16 halves;
+    the output is rounded once to q's dtype."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    o = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, t, tile):
+        scores = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / math.sqrt(d)
+        cols = torch.arange(k0, min(k0 + tile, t))[None, :]
+        scores = torch.where(rows >= cols, scores, torch.tensor(-1e30))
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        p = torch.exp(scores - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, :, k0:k0 + tile]
+        if split_p:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        o = o * alpha + pv
+        m = m_new
+    return (o / l.clamp_min(1e-30)).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def test_split_p_holds_the_card_gate_where_a_bf16_p_breaks_it():
+    """The card check holds bfloat16 B4 to its plain version within 1e-4 +
+    8e-3·|ref|, capped at 2e-2 (``chip_smoke.py``'s ATTN gate).  The TPU
+    kernel keeps P in float32; a P rounded to bfloat16 alone moves the
+    early causal rows (few keys, large outputs) by ~2^-9 of their size and
+    breaks the gate several times over, while P_hi + P_lo stays within
+    it.  Causal, GQA 2:1, d = 128, 4 tiles of 64 keys."""
+    b, s, h, kv, d = 1, 256, 4, 2, 128
+    q = torch.from_numpy(_normal(21, b, s, h, d)).bfloat16()
+    k = torch.from_numpy(_normal(22, b, s, kv, d)).bfloat16()
+    v = torch.from_numpy(_normal(23, b, s, kv, d)).bfloat16()
+    ref = t_attention_ref(q, k, v, causal=True).float()
+    limit = (1e-4 + 8e-3 * ref.abs()).clamp(max=2e-2)
+
+    def worst(out):
+        return float(((out.float() - ref).abs() / limit).max())
+
+    assert worst(_tiled_attention(q, k, v, split_p=True)) <= 1.0
+    assert worst(_tiled_attention(q, k, v, split_p=False)) > 2.0

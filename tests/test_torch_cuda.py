@@ -11,6 +11,8 @@ import math
 import pytest
 import torch
 
+from repro_torch.kernels._launch import bind
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode.kernel import flash_decode
@@ -116,6 +118,12 @@ ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
     (1, 256, 1024, 8, 2, 64),       # S != T: top-left causal rule
     (1, 130, 70, 4, 4, 256),        # gemma's head width, S > T
     (2, 33, 33, 6, 1, 40),          # MQA, d a multiple of 8 only
+    (1, 200, 200, 8, 4, 96),        # phi3-vision's head width: N = 96 on the tensor cores
+    (1, 1000, 1000, 8, 2, 128),     # 16 K/V tiles of 64, the last one ragged
+    (1, 150, 150, 4, 2, 32),        # the tensor cores' other widths: 32 ...
+    (1, 97, 130, 4, 1, 48),         # ... 48 (V zero-padded to N = 64), S != T ...
+    (2, 300, 300, 4, 4, 80),        # ... 80 (N = 96) ...
+    (1, 190, 190, 8, 2, 112),       # ... and 112 (N = 128), the most registers
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -124,12 +132,29 @@ def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dt
     q = torch.randn(b, s, h, d, generator=g).to(card, dtype)
     k = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     v = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
-    before = flash_attention.launches
+    body = "wgmma" if dtype == torch.bfloat16 and d in (16, 32, 48, 64, 80, 96, 112, 128) else "simt"
+    before = flash_attention.launches, flash_attention.launches_by_body[body]
     out = flash_attention(q, k, v, causal=causal)
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention.launches_by_body[body]) == (before[0] + 1,
+                                                                                  before[1] + 1)
     ref = attention_ref(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
+
+
+def test_flash_attention_entry_point_refuses_a_body_it_cannot_take(card):
+    """The C side returns cudaErrorInvalidValue (1) for the wgmma body on
+    float32, on d = 40 or on d = 256, without launching."""
+    fn = bind("flash_attention", "flash_attention_fwd", fa_kernel._ARGTYPES)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 40), (torch.bfloat16, 256)):
+        q = torch.zeros(1, 64, 2, d, dtype=dtype, device=card)
+        out = torch.empty_like(q)
+        rc = fn(fa_kernel.BODIES["wgmma"], fa_kernel.DTYPES[dtype], q.data_ptr(), q.data_ptr(),
+                q.data_ptr(), out.data_ptr(), 1, 64, 64, 2, 2, d, *q.stride()[:3], *q.stride()[:3],
+                *q.stride()[:3], 1, 1.0 / math.sqrt(d), stream)
+        assert rc == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("b,h,kv,d,t", [
