@@ -53,14 +53,16 @@ SOLO_CHECK_STEPS = 400
 # tokens each: phi3-medium-14b (dense) with 4 requests of a 2,048-token
 # prompt; mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each
 # (batch, head) carries its state across 8 chunks of 1,024.  ``prefill``
-# and ``decode`` name the kernel of each step (wrapper, device kernel) and
-# ``reduced_prompt`` the prompt of the reduced model's card-against-CPU check.
+# and ``decode`` name the kernel of each step (wrapper, a key that every
+# device kernel of it holds in its name, label) and ``reduced_prompt`` the
+# prompt of the reduced model's card-against-CPU check.  "ssd_scan" is in
+# the names of all five of B6's launches.
 SERVE_CELLS = {
     "dense": dict(arch="phi3-medium-14b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
                   prefill=("flash_attention", "flash_attention_kernel", "B4"),
                   decode=("flash_decode", "flash_decode_kernel", "B5")),
     "ssm": dict(arch="mamba2-370m", batch=4, prompt=8192, tokens=64, reduced_prompt=64,
-                prefill=("ssd_scan", "ssd_scan_kernel", "B6"), decode=None),
+                prefill=("ssd_scan", "ssd_scan", "B6"), decode=None),
 }
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
@@ -110,7 +112,9 @@ SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 # state of all but its last tile carry no weight.  dt "weak" is log-uniform
 # in [1e-3, 0.1], Mamba-2's dt init: with a = -1 no decay underflows, which
 # the check requires, so every tile pair and every chunk's state counts.
-# The first row is the serve path's prefill.
+# The first row is the serve path's prefill; the last the same prompt at
+# batch 1, where B6 trailed its plain version before its chunks ran in
+# parallel.
 B6_SHAPES = (
     (4, 8192, 32, 64, 128, 1024, 1.0, "softplus"),
     (1, 1024, 32, 64, 128, 1024, 1.0, "softplus"),           # one chunk
@@ -118,7 +122,10 @@ B6_SHAPES = (
     (3, 128, 1, 16, 32, 32, None, "softplus"),               # the reference's kernel test's widths
     (2, 2048, 8, 64, 128, 1024, math.log(8.0), "softplus"),  # a = -8: exp(acs) underflows
     (2, 4096, 8, 64, 128, 1024, 0.0, "weak"),                # serve widths, 4 chunks, no underflow
+    (1, 8192, 32, 64, 128, 1024, 0.0, "weak"),               # the batch-1 prefill, no underflow
 )
+# B6's five launches, by the word between "ssd_scan_" and "_kernel" in their names
+B6_PHASES = ("acs", "cb", "chunk_state", "state_pass", "chunk_scan")
 
 
 def fail(msg: str) -> None:
@@ -225,6 +232,20 @@ def check_b4_build(info: dict) -> None:
     if hgmma == 0:
         fail("B4's library holds no HGMMA instruction: the wgmma body is not on the tensor cores")
     print(f"  B4 library: {'not checked (no cuobjdump)' if hgmma is None else hgmma} HGMMA instructions")
+
+
+def check_b6_build(info: dict) -> None:
+    """Each of B6's five kernels as built: ptxas reports it, without spills."""
+    entries = [e for e in ptxas_entries(info["log"]) if "ssd_scan" in e["name"]]
+    for phase in B6_PHASES:
+        found = [e for e in entries if f"ssd_scan_{phase}_kernel" in e["name"]]
+        if not found:
+            fail(f"ptxas reported no kernel of B6's {phase} phase")
+        for e in found:
+            print(f"  B6 {phase}: {e['registers']} registers, spill stores {e['spill_stores']} B, "
+                  f"spill loads {e['spill_loads']} B")
+            if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+                fail(f"B6's {phase} kernel spills or went unreported: {e}")
 
 
 # ----------------------------------------------------------------- kernels
@@ -859,20 +880,61 @@ def ssd_work(b, s, h, p, n, q) -> tuple[int, int]:
 
 
 def ssd_kernel_ops(b, s, h, p, n, q, tile=64) -> int:
-    """The multiply-adds (2 operations each) B6 itself issues: per (b, h)
-    and chunk, the 64 x 64 tile pairs on and below the diagonal form
-    C·Bᵀ (2N a score) and add it times x·dt into y (2P a score, an upper
-    bound on the diagonal tile), and the inter-chunk and state products
-    take 4QPN."""
-    rows = b * h
-    nt = -(-q // tile)
-    return rows * (s // q) * (nt * (nt + 1) // 2 * tile * tile * (2 * n + 2 * p) + 4 * q * p * n)
+    """The operations B6's five launches issue (a multiply-add counts 2; a
+    subtraction, an exp or a multiply 1), as the source tiles the work: 64 x 64
+    tiles of y and of C·Bᵀ with the P columns padded to 64, the chunk's
+    positions padded to whole stages, each thread an 8 x 8 block.
+    - cb: per (b, chunk), each tile on and below the diagonal, 64·64·N
+      multiply-adds;
+    - chunk_state: per (b, chunk, h) and 128 state columns, 128 threads each
+      doing 64 multiply-adds and 8 multiplies (x times its weight) a
+      position, the positions of each stage of 32 rounded up to 4;
+    - acs and state_pass: 3 operations a weight, an exp and a multiply-add
+      a state element and chunk;
+    - chunk_scan: per (b, chunk, h, row tile t), after the first chunk the
+      inter-chunk 64·64·N multiply-adds and the 64 x 64 scaling; per
+      column tile the decay (4 operations a score) and 64·64·64
+      multiply-adds, of which the diagonal tile issues only the positions
+      up to each thread's last row (min(64, 4·ty + 36) for the rows 4·ty …
+      4·ty + 3 and 4·ty + 32 … 4·ty + 35)."""
+    nc, nt = s // q, -(-q // tile)
+    pairs = nt * (nt + 1) // 2
+    cb = b * nc * pairs * tile * tile * 2 * n
+    steps = sum(-(-min(32, q - k0) // 4) * 4 for k0 in range(0, q, 32))
+    state = b * nc * h * -(-n // 128) * 128 * (2 * 64 + 8) * steps
+    acs_and_pass = b * nc * h * 3 * q + b * h * n * p * nc * 3
+    diag = 8 * sum(min(tile, 4 * ty + 36) for ty in range(8)) * 2 * 64   # 8 threads a row group, 64 FMAs a step
+    decay = 4 * tile * tile
+    per_row_tile = [(decay + 2 * tile ** 3) * t + decay + diag for t in range(nt)]
+    inter = b * (nc - 1) * h * nt * (2 * tile * tile * n + tile * tile)
+    scan = b * nc * h * sum(per_row_tile) + inter
+    return cb + state + acs_and_pass + scan
+
+
+def ssd_phase_us(fn, *, n: int = 3) -> dict:
+    """Device µs per call of each of B6's five launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(B6_PHASES, 0.0)
+    for e in device_events(prof):
+        m = re.search(r"ssd_scan_(\w+?)_kernel", e.name)
+        if m and m.group(1) in us:
+            us[m.group(1)] += e.time_range.elapsed_us() / n
+    return us
 
 
 def check_ssd_kernel(torch, rows) -> None:
     """B6 against its plain version on the card, y and the final state,
-    element by element within SSD_ATOL + SSD_RTOL·|ref|.  No PyTorch call
-    computes the SSD scan, so there is no library time."""
+    element by element within SSD_ATOL + SSD_RTOL·|ref|, and its device
+    time by launch.  No PyTorch call computes the SSD scan, so there is no
+    library time."""
     from repro_torch.kernels.ssd_scan.kernel import smem_bytes, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
@@ -906,14 +968,19 @@ def check_ssd_kernel(torch, rows) -> None:
                         shape=[b, s, h, p, n, q], a_log=a_log, dt=dt_kind, bytes=nbytes, ops=ops,
                         max_abs_err=errs[0][0], max_abs_ref=errs[0][1], state_max_abs_err=errs[1][0],
                         state_max_abs_ref=errs[1][1], diff_over_limit=worst, chunk_underflow=underflow,
-                        kernel_ops=own, smem_bytes=smem_bytes(p, n, q))
+                        kernel_ops=own, smem_bytes=smem_bytes())
+        row["phases_us"] = ssd_phase_us(lambda: ssd_scan(x, dt, bm, cm, a, chunk=chunk))
         rows[("ssd_scan", *shape)] = row
         print(f"  ssd_scan (B,S,H,P,N,Q)=({b},{s},{h},{p},{n},{q}), a_log {a_log}, dt {dt_kind}: "
               f"max |diff| y {errs[0][0]:.3g} (max |ref| {errs[0][1]:.4g}), state {errs[1][0]:.3g} "
               f"(max |ref| {errs[1][1]:.4g}), largest |diff| / limit {worst:.3g} (limit {SSD_ATOL:g} + "
               f"{SSD_RTOL:g}·|ref|); whole-chunk decay underflows in {100 * underflow:.0f}% of chunks; "
               f"{ops:.4g} operations needed, {own:.4g} issued by B6 ({own / row['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{row['smem_bytes']} bytes of dynamic shared memory); " + describe(row))
+              f"at most {row['smem_bytes']} bytes of dynamic shared memory a block); " + describe(row))
+        print("    by launch, device us: " + ", ".join(f"{k} {v:.1f}" for k, v in row["phases_us"].items()))
+        if row["ms"] > row["plain_ms"]:
+            fail(f"ssd_scan at {shape}: {row['ms'] * 1e3:.1f} us, slower than its plain version's "
+                 f"{row['plain_ms'] * 1e3:.1f} us")
         del x, dt, bm, cm, a
         torch.cuda.empty_cache()
 
@@ -1228,6 +1295,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
     check_b4_build(built["flash_attention"])
+    check_b6_build(built["ssd_scan"])
 
     print("kernels vs plain versions on the card:")
     rows = check_kernels(torch)

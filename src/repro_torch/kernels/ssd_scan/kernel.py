@@ -1,6 +1,8 @@
 """ctypes binding of ``csrc/ssd_scan.cu`` (kernel B6; see the source's
-note): the Mamba-2 SSD chunk scan in float32, one launch for all (batch,
-head) pairs, in the model's layout."""
+note): the Mamba-2 SSD chunk scan in float32, in the model's layout, as
+five launches (acs, cb, chunk_state, state_pass, chunk_scan) on the
+current stream that run the chunks in parallel and carry only the state
+in order."""
 from __future__ import annotations
 
 import ctypes
@@ -13,13 +15,22 @@ from repro_torch.kernels.ssd_scan.ref import chunk_len
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 11 + [_P]
+_ARGTYPES = [_P] * 8 + [_I] * 6 + [_L] * 11 + [_P]
 SMEM_LIMIT = 232_448            # bytes of shared memory a block may use on the H100
 
 
-def smem_bytes(p: int, n: int, q: int) -> int:
-    """The dynamic shared memory of a launch at (P, N, Q), from the source."""
-    return int(bind("ssd_scan", "ssd_scan_smem_bytes", [_I, _I, _I], restype=_L)(p, n, q))
+def smem_bytes() -> int:
+    """The largest dynamic shared memory of the five launches, from the
+    source; no width or chunk changes it."""
+    return int(bind("ssd_scan", "ssd_scan_smem_bytes", [], restype=_L)())
+
+
+def scratch_floats(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """Floats of scratch a launch at these sizes needs (the chunks' acs, dt
+    and state weights, the C·Bᵀ tiles, the chunk states and incoming
+    states); -1 where the kernels cannot run."""
+    fn = bind("ssd_scan", "ssd_scan_scratch_floats", [_I] * 6, restype=_L)
+    return int(fn(b, s, h, p, n, q))
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device, *, rows: bool) -> None:
@@ -44,7 +55,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.
     slices of one projection are read in place), a [H] → (y [B,S,H,P],
     final state [B,H,P,N]), the state starting at zero.  CUDA float32; P a
     multiple of 4 up to 64, N a multiple of 4 up to 256, S a multiple of
-    min(chunk, S).  One launch; counted in ``ssd_scan.launches``."""
+    min(chunk, S).  Five launches and a scratch buffer from
+    ``torch.empty`` (0.14 GB at (4, 8192, 32, 64, 128, Q 1024));
+    counted once in ``ssd_scan.launches``."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B,S,H,P], got shape {tuple(x.shape)}")
     bsz, s, h, p = x.shape
@@ -59,19 +72,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.
         raise ValueError(f"(P, N) = ({p}, {n}) unsupported: the kernel takes multiples of 4, "
                          f"P up to 64 and N up to 256")
     q = chunk_len(s, chunk)
-    if smem_bytes(p, n, q) > SMEM_LIMIT:
-        raise ValueError(f"chunk {q} with (P, N) = ({p}, {n}) needs {smem_bytes(p, n, q)} bytes of "
-                         f"shared memory, above the card's {SMEM_LIMIT}")
-    if bsz * h >= 2**31:
-        raise ValueError(f"{bsz} x {h} (batch, head) pairs exceed the kernel's grid")
+    if smem_bytes() > SMEM_LIMIT:
+        raise ValueError(f"the kernels need {smem_bytes()} bytes of shared memory, above the card's "
+                         f"{SMEM_LIMIT}")
+    floats = scratch_floats(bsz, s, h, p, n, q)
+    if floats < 0:
+        raise ValueError(f"(B, S, H, Q) = ({bsz}, {s}, {h}, {q}) exceeds the kernels' grids")
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
     h_out = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     fn = bind("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
-                y.data_ptr(), h_out.data_ptr(), bsz, s, h, p, n, q, *x.stride()[:3], *dt.stride(),
-                *bmat.stride()[:2], *cmat.stride()[:2], a.stride(0), stream)
+                y.data_ptr(), h_out.data_ptr(), scratch.data_ptr(), bsz, s, h, p, n, q, *x.stride()[:3],
+                *dt.stride(), *bmat.stride()[:2], *cmat.stride()[:2], a.stride(0), stream)
     check_status("ssd_scan", rc)
     ssd_scan.launches += 1
     return y, h_out

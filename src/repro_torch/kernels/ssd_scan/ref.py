@@ -19,6 +19,10 @@ computes ``acs`` the same way, so the two agree on it.
 
 The model's layout: x [B,S,H,P], dt [B,S,H], B/C [B,S,N] shared by the
 H heads, a [H]; the state starts at zero.  Everything is float32.
+
+``ssd_chunked_ref`` computes the same function as kernel B6 decomposes it:
+the chunks' own terms all at once and only the state's carry in order (see
+``csrc/ssd_scan.cu``).
 """
 from __future__ import annotations
 
@@ -59,3 +63,45 @@ def ssd_ref(x, dt, bmat, cmat, a, *, chunk: int):
         hs = torch.exp(acs[:, -1])[..., None, None] * hs + state
         ys.append(y_intra + y_inter)
     return torch.cat(ys, dim=1), hs
+
+
+def ssd_chunked_ref(x, dt, bmat, cmat, a, *, chunk: int):
+    """``ssd_ref``'s function in kernel B6's five phases, every chunk at
+    once but for the carry of phase 4:
+
+    1. acs: the inclusive cumulative sum of dt·a in each chunk (float64,
+       rounded once to float32);
+    2. cb: C·Bᵀ of each chunk, once for all heads;
+    3. chunk_state: S_c = Σ_s dt_s exp(acs_end − acs_s) x_s ⊗ B_s, the
+       state chunk c adds from a zero start;
+    4. state_pass: h_in[0] = 0, h_in[c+1] = exp(acs_end_c) h_in[c] + S_c,
+       the only sequential step; the last is the final state;
+    5. chunk_scan: y_t = exp(acs_t) C_t·h_in[c] + Σ_{s≤t} CB[t,s]
+       exp(acs_t − acs_s) dt_s x_s, the decay the exp of each pair's
+       difference, never exp(acs_t)·exp(−acs_s) (which overflows).
+
+    Same arguments and result as ``ssd_ref``."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = chunk_len(s, chunk)
+    nc = s // q
+    xc = x.reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    bc, cc = bmat.reshape(b, nc, q, n), cmat.reshape(b, nc, q, n)
+    la = dt * a.unsqueeze(-2)                                               # [B,S,H]
+    acs = torch.cumsum(la.reshape(b, nc, q, h), dim=2, dtype=torch.float64).float()
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                            # [B,nc,Q,Q]
+    w = dtc * torch.exp(acs[:, :, -1:] - acs)                               # [B,nc,Q,H]
+    states = torch.einsum("bcsh,bcshp,bcsn->bchpn", w, xc, bc)              # [B,nc,H,P,N]
+    decay = torch.exp(acs[:, :, -1])                                        # [B,nc,H]
+    h_in = torch.empty_like(states)
+    hs = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    for c in range(nc):
+        h_in[:, c] = hs
+        hs = decay[:, c, :, None, None] * hs + states[:, c]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    rel = acs[:, :, :, None, :] - acs[:, :, None, :, :]                     # [B,nc,Q,Q,H]
+    lmat = torch.exp(torch.where(tri[:, :, None], rel, float("-inf")))
+    y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, lmat, xc * dtc[..., None])
+    y_inter = torch.exp(acs)[..., None] * torch.einsum("bcin,bchpn->bcihp", cc, h_in)
+    return (y_intra + y_inter).reshape(b, s, h, p), hs

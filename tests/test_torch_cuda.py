@@ -193,6 +193,8 @@ SSD_TOL = 1e-4
     (3, 128, 1, 16, 32, 32, "strong"),       # the reference's kernel test's widths, BH as B
     (1, 200, 4, 32, 64, 100, "strong"),      # chunk not a multiple of the 64-row tile
     (2, 4096, 8, 64, 128, 1024, "weak"),     # serve widths, 4 chunks, nothing underflows
+    (1, 8192, 32, 64, 128, 1024, "weak"),    # the batch-1 prefill at serve widths, 8 chunks
+    (2, 256, 8, 64, 128, 32, "weak"),        # a chunk below one tile at serve widths
 ])
 def test_ssd_scan_kernel_equals_plain(card, b, s, h, p, n, chunk, decay):
     """dt after softplus of a normal ("strong": exp(acs) underflows within

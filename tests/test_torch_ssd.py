@@ -6,7 +6,8 @@ Pallas kernel ``ssd_scan_kernel`` in interpret mode and its oracle
 ``ssd_ref`` (the kernel's ``[BH, S, .]`` layout, which the port reads as
 B = BH, H = 1 with a decay per row), and the model's
 ``repro.models.mamba2.ssd_scan`` (the model's layout, and the final state,
-which the Pallas kernel drops).  Tolerance 2e-4, the reference's own for
+which the Pallas kernel drops).  ``ssd_chunked_ref``, the same function in
+kernel B6's five phases, is held to both.  Tolerance 2e-4, the reference's own for
 its kernel against its oracle (``tests/test_kernels.py``): both sides are
 float32 and sum in other orders; the port sums the chunk's cumulative
 log-decay in float64 (see ``ref.py``).
@@ -24,7 +25,7 @@ from repro.kernels.ssd_scan.ref import ssd_ref as j_ssd_ref
 from repro.models import mamba2 as jm
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan as ssd_kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
 from repro_torch.models import mamba2 as tm
 
 TOL = 2e-4
@@ -232,3 +233,97 @@ def test_ops_dispatch_on_the_device():
     assert ssd_kernel.launches == before
     with pytest.raises(ValueError, match="no SSD scan for device meta"):
         ops.ssd(*[t.to("meta") for t in inputs], chunk=16)
+
+
+# ---- ssd_chunked_ref: B6's decomposition (chunks at once, then the state's carry)
+
+def _weak_inputs(seed, b, s, h, p, n):
+    """dt log-uniform in [1e-3, 0.1] (Mamba-2's dt init) and a = -1: no
+    decay underflows, so every pair and every chunk's state carries
+    weight.  a_log [H] = 0."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.exp(np.log(1e-3) + np.log(100.0) * rng.random((b, s, h))).astype(np.float32)
+    bc = (0.3 * rng.standard_normal((b, s, 2 * n))).astype(np.float32)
+    return x, dt, bc, np.zeros(h, np.float32)
+
+
+def _against_the_plain_version_and_the_reference(x, dt, bc, a_log, chunk):
+    """ssd_chunked_ref's y and final state against ssd_ref and against
+    ``repro.models.mamba2.ssd_scan`` on the same inputs."""
+    n = bc.shape[-1] // 2
+    tx, tdt, tbc, ta = _t(x, dt, bc, a_log)
+    inputs = (tx, tdt, tbc[..., :n], tbc[..., n:], -torch.exp(ta))
+    y, hs = ssd_chunked_ref(*inputs, chunk=chunk)
+    ry, rh = ssd_ref(*inputs, chunk=chunk)
+    jy, jh = jm.ssd_scan(*_j(x, dt, bc[..., :n], bc[..., n:], a_log), chunk=chunk)
+    assert y.shape == x.shape and hs.shape == rh.shape and y.dtype == hs.dtype == torch.float32
+    for ours, plain, ref in ((y, ry, jy), (hs, rh, jh)):
+        assert torch.isfinite(ours).all()
+        np.testing.assert_allclose(ours.numpy(), plain.numpy(), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    return y, hs
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 3, 8, 16, 16),        # the file's widths, four chunks
+    (2, 64, 3, 8, 16, 64),        # one chunk
+    (1, 200, 2, 8, 16, 100),      # a chunk that is not a multiple of the kernel's 64-row tile
+    (2, 96, 2, 8, 16, 32),        # a chunk below one tile
+    (1, 128, 2, 16, 32, 256),     # a chunk longer than S, cut to S
+])
+def test_chunked_plain_matches_the_plain_version_and_the_reference(b, s, h, p, n, chunk):
+    _against_the_plain_version_and_the_reference(*_model_inputs(b * s + chunk, b, s, h, p, n), chunk)
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+def test_chunked_plain_at_strong_and_weak_decay(decay):
+    """a = -8 (exp of a whole chunk's decay underflows to 0, and so does
+    the pairwise decay of distant positions), or the weak decay (nothing
+    underflows: a term dropped for its small decay would show)."""
+    b, s, h, p, n, q = 2, 256, 2, 8, 16, 64
+    if decay == "strong":
+        x, dt, bc, _ = _model_inputs(21, b, s, h, p, n)
+        a_log = np.full(h, np.log(8.0), np.float32)
+    else:
+        x, dt, bc, a_log = _weak_inputs(22, b, s, h, p, n)
+    whole = np.exp((dt * -np.exp(a_log)).reshape(b, s // q, q, h).sum(axis=2))
+    assert (whole == 0).all() if decay == "strong" else (whole > 0).all()
+    y, _ = _against_the_plain_version_and_the_reference(x, dt, bc, a_log, q)
+    assert float(y.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("chunk", [8, 12, 48])
+def test_chunked_plain_final_state_equals_the_sequential_recurrence(chunk):
+    """The carry of phase 4 gives the token-by-token recurrence's state and
+    output, over several chunks (12 and 48 do not divide a 64-row tile)."""
+    b, s, h, p, n = 2, 96, 2, 4, 8
+    x, dt, bc, a_log = _weak_inputs(chunk, b, s, h, p, n)
+    a = -np.exp(a_log)
+    y, hs = ssd_chunked_ref(*_t(x, dt, bc[..., :n], bc[..., n:], a), chunk=chunk)
+    ys, hseq = _sequential(x, dt, bc[..., :n], bc[..., n:], a)
+    np.testing.assert_allclose(y.numpy(), ys, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hs.numpy(), hseq, rtol=TOL, atol=TOL)
+
+
+def test_unfactored_decay_stays_finite_where_the_factored_one_overflows():
+    """At a = -8 acs falls by hundreds inside a chunk of 64, so exp(-acs_s)
+    overflows float32 and exp(acs_t)·exp(-acs_s) gives inf and NaN, where
+    exp(acs_t - acs_s), formed pair by pair as B6 and ssd_chunked_ref do,
+    stays in [0, 1]."""
+    b, s, h, p, n, q = 1, 64, 2, 8, 16, 64
+    x, dt, bc, _ = _model_inputs(23, b, s, h, p, n)
+    a = np.full(h, -8.0, np.float32)
+    acs = torch.cumsum(torch.from_numpy(dt * a), dim=1, dtype=torch.float64).float()[0]   # [Q,H]
+    assert float(acs.min()) < -89.0                       # exp(89) overflows float32
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[..., None]
+    factored = torch.exp(acs)[:, None] * torch.exp(-acs)[None, :]
+    assert not torch.isfinite(factored[tri.expand_as(factored)]).all()
+    pairwise = torch.exp(acs[:, None] - acs[None, :])[tri.expand(q, q, h)]
+    assert torch.isfinite(pairwise).all() and float(pairwise.max()) <= 1.0
+    inputs = _t(x, dt, bc[..., :n], bc[..., n:], a)
+    y, hs = ssd_chunked_ref(*inputs, chunk=q)
+    ry, rh = ssd_ref(*inputs, chunk=q)
+    assert torch.isfinite(y).all() and torch.isfinite(hs).all()
+    torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(hs, rh, rtol=TOL, atol=TOL)
