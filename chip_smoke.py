@@ -6,7 +6,8 @@ through kernel B4, greedy decode through kernel B5) and the full-width
 mamba2-370m (prefill through kernel B6, the SSD chunk scan), hold each
 one's decode to teacher forcing, and each reduced LM on the card to the
 same on the CPU; last, prefill phi3-medium-14b in bfloat16 at full depth,
-whose attention runs on B4's tensor-core ("wgmma") body.
+whose attention runs on B4's bf16 tensor-core ("wgmma") body.  The float32
+prefill's attention runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
 
     python3 chip_smoke.py
 
@@ -38,6 +39,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12          # dense tensor-core rate
+TF32_OPS_PER_S = 495e12          # dense tensor-core rate; 3xTF32 issues 3 products a float32 one
 
 MAIN_PLAN = dict(result_limit=200, max_steps=5000, cohorts=50, method="pallas", trace_every=256)
 HOST_CHECK_PLAN = dict(result_limit=40, max_steps=400, cohorts=8, method="pallas", trace_every=64)
@@ -54,15 +56,17 @@ SOLO_CHECK_STEPS = 400
 # prompt; mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each
 # (batch, head) carries its state across 8 chunks of 1,024.  ``prefill``
 # and ``decode`` name the kernel of each step (wrapper, a key that every
-# device kernel of it holds in its name, label) and ``reduced_prompt`` the
-# prompt of the reduced model's card-against-CPU check.  "ssd_scan" is in
-# the names of all five of B6's launches.
+# device kernel of it holds in its name, label), ``prefill_body`` the B4
+# body every prefill launch must take (full width and reduced), and
+# ``reduced_prompt`` the prompt of the reduced model's card-against-CPU
+# check.  "ssd_scan" is in the names of all five of B6's launches,
+# "flash_attention" in those of B4's three bodies.
 SERVE_CELLS = {
     "dense": dict(arch="phi3-medium-14b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
-                  prefill=("flash_attention", "flash_attention_kernel", "B4"),
+                  prefill=("flash_attention", "flash_attention", "B4"), prefill_body="wgmma_f32",
                   decode=("flash_decode", "flash_decode_kernel", "B5")),
     "ssm": dict(arch="mamba2-370m", batch=4, prompt=8192, tokens=64, reduced_prompt=64,
-                prefill=("ssd_scan", "ssd_scan", "B6"), decode=None),
+                prefill=("ssd_scan", "ssd_scan", "B6"), prefill_body=None, decode=None),
 }
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
@@ -72,7 +76,8 @@ ATTN_ATOL, ATTN_CAP = 1e-4, 2e-2
 ATTN_RTOL = {"float32": 0.0, "bfloat16": 8e-3}
 # (B, S, T, H, KV, d, dtype, causal); the first is the serve path's prefill,
 # the fourth the bf16 prefill's.  bfloat16 with d a multiple of 16 up to 128
-# runs on B4's "wgmma" body, the rest on "simt" (kernel.select_body)
+# runs on B4's "wgmma" body, float32 with d up to 128 on "wgmma_f32", the
+# rest (gemma's d = 256) on "simt" (kernel.select_body)
 B4_SHAPES = (
     (4, 2048, 2048, 40, 10, 128, "float32", True),
     (1, 2048, 2048, 40, 10, 128, "float32", True),
@@ -87,6 +92,8 @@ B4_SHAPES = (
     (1, 256, 1024, 40, 10, 128, "bfloat16", True),
     (1, 2048, 2048, 16, 8, 64, "bfloat16", True),        # granite-moe's heads
     (1, 2048, 2048, 32, 32, 96, "bfloat16", True),       # phi3-vision's heads
+    (1, 2048, 2048, 16, 8, 64, "float32", True),         # granite-moe's heads
+    (1, 2048, 2048, 32, 32, 96, "float32", True),        # phi3-vision's heads
 )
 # the dense prefill in bfloat16 (the reference's default param_dtype): one
 # prompt of 8,192 tokens, so each layer's attention is B4_SHAPES[3]; all
@@ -204,34 +211,52 @@ def ptxas_entries(log: str) -> list[dict]:
     return entries
 
 
-def sass_count(lib: str, opcode: str) -> int | None:
-    """How many instructions of ``opcode`` the library's SASS holds
-    (``cuobjdump -sass``); None when the toolkit has no cuobjdump."""
+def sass_opcodes(lib: str) -> dict | None:
+    """How many instructions of each opcode (with its modifiers) the
+    library's SASS holds (``cuobjdump -sass``); None when the toolkit has
+    no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                                      "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
-    return sum(line.split()[1].startswith(opcode) for line in sass.splitlines()
-               if line.strip().startswith("/*") and len(line.split()) > 1)
+    ops = {}
+    for line in sass.splitlines():
+        parts = line.split()
+        if line.strip().startswith("/*") and len(parts) > 1:
+            ops[parts[1]] = ops.get(parts[1], 0) + 1
+    return ops
+
+
+# B4's tensor-core bodies: (label, a key its kernels hold in their names,
+# the type of its HGMMA instructions in SASS)
+B4_TC_BODIES = (("wgmma", "flash_attention_wgmma", "BF16"), ("wgmma_f32", "flash_attention_tf32", "TF32"))
 
 
 def check_b4_build(info: dict) -> None:
-    """B4's tensor-core body as built: ptxas reports it without spills, and
-    its SASS holds HGMMA instructions (where cuobjdump is there to say)."""
-    bodies = [e for e in ptxas_entries(info["log"]) if "flash_attention_wgmma" in e["name"]]
-    if not bodies:
-        fail("ptxas reported no kernel of B4's wgmma body")
-    for e in bodies:
-        width = re.search(r"ILi(\d+)E", e["name"])
-        print(f"  B4 wgmma body, d = {width.group(1) if width else '?'}: {e['registers']} registers, "
-              f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
-        if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
-            fail(f"B4's wgmma body spills or went unreported: {e}")
-    hgmma = sass_count(info["path"], "HGMMA")
-    if hgmma == 0:
-        fail("B4's library holds no HGMMA instruction: the wgmma body is not on the tensor cores")
-    print(f"  B4 library: {'not checked (no cuobjdump)' if hgmma is None else hgmma} HGMMA instructions")
+    """B4's tensor-core bodies as built: ptxas reports each without spills,
+    and the library's SASS holds HGMMA instructions of each one's type
+    (where cuobjdump is there to say)."""
+    ops = sass_opcodes(info["path"])
+    entries = ptxas_entries(info["log"])
+    for label, key, kind in B4_TC_BODIES:
+        bodies = [e for e in entries if key in e["name"]]
+        if not bodies:
+            fail(f"ptxas reported no kernel of B4's {label} body")
+        for e in bodies:
+            width = re.search(r"ILi(\d+)E", e["name"])
+            print(f"  B4 {label} body, d = {width.group(1) if width else '?'}: {e['registers']} registers, "
+                  f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
+            if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+                fail(f"B4's {label} body spills or went unreported: {e}")
+        if ops is None:
+            print(f"  B4 library: {kind} HGMMA not checked (no cuobjdump)")
+            continue
+        hgmma = {op: n for op, n in ops.items() if op.startswith("HGMMA") and kind in op.split(".")}
+        if not hgmma:
+            fail(f"B4's library holds no {kind} HGMMA instruction: the {label} body is not on the "
+                 f"tensor cores (HGMMA: {[op for op in ops if op.startswith('HGMMA')]})")
+        print(f"  B4 library, {label}: {sum(hgmma.values())} {kind} HGMMA instructions {hgmma}")
 
 
 def check_b6_build(info: dict) -> None:
@@ -469,12 +494,17 @@ def attn_compare(out, ref, dtype: str) -> tuple:
 
 def check_attention_kernels(torch, rows) -> None:
     """B4 and B5 against their plain versions on the card (float32 within
-    1e-4; bfloat16 within about one bf16 ulp, see ATTN_RTOL), timed beside
-    SDPA, the PyTorch call that computes the same function (never used by
-    the port)."""
+    1e-4; bfloat16 within about one bf16 ulp, see ATTN_RTOL), each B4 row on
+    the body ``select_body`` names, timed beside SDPA, the PyTorch call that
+    computes the same function (never used by the port).  SDPA's GQA keeps
+    its memory-efficient backend away from float32, so a float32 row also
+    times SDPA on K/V repeated to H heads outside the timed call, and its
+    library time is the faster of the two.  A "wgmma_f32" row's bound is
+    its 3xTF32 products at the TF32 rate (or its bytes), printed beside the
+    float32-FMA bound."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, select_body
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.flash_decode.ref import decode_ref
@@ -490,7 +520,7 @@ def check_attention_kernels(torch, rows) -> None:
         ref = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         body = [n for n, c in flash_attention.launches_by_body.items() if c != before[n]]
-        want = "wgmma" if dtype == "bfloat16" and d % 16 == 0 and d <= 128 else "simt"
+        want = select_body(q.dtype, d)
         if body != [want]:
             fail(f"flash_attention at {(b, s, t, h, kv, d, dtype, causal)} ran body {body}, expected {want}")
         err, mag, worst = attn_compare(out, ref, dtype)
@@ -506,19 +536,41 @@ def check_attention_kernels(torch, rows) -> None:
         backend, names = sdpa_backend(library)
         ops = 4 * d * visible_pairs(s, t, causal) * b * h
         big = ops > 5e10
+        n_avg = 3 if big else 20
+        if want == "wgmma_f32":            # 3 TF32 products for each float32 one
+            issued, ops_per_s = 3 * ops, TF32_OPS_PER_S
+        else:
+            issued, ops_per_s = ops, F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
         row = timed_row(lambda: flash_attention(q, k, v, causal=causal),
                         lambda: attention_ref(q, k, v, causal=causal), library=library,
-                        n=3 if big else 20, inner=2 if big else 10, reps=3 if big else 5,
-                        ops_per_s=F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S,
+                        n=n_avg, inner=2 if big else 10, reps=3 if big else 5, ops_per_s=ops_per_s,
                         shape=[b, s, t, h, kv, d], dtype=dtype, causal=causal,
-                        bytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(), ops=ops,
-                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend,
-                        body=want)
+                        bytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(), ops=issued,
+                        needed_ops=ops, max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst,
+                        sdpa_backend=backend, body=want)
+        row["library_gqa_ms"] = row["library_ms"]
+        lib_text = f"SDPA (GQA) {backend} {row['library_ms'] * 1e3:.2f} us"
+        if dtype == "float32":
+            kr, vr = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+
+            def repeated():
+                return F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal)
+
+            rep_backend, _ = sdpa_backend(repeated)
+            rep_ms = device_ms(repeated, n=n_avg) or median_ms(repeated, inner=2 if big else 10,
+                                                                reps=3 if big else 5)
+            row.update(sdpa_repeat_backend=rep_backend, library_repeat_ms=rep_ms,
+                       library_ms=min(row["library_ms"], rep_ms),
+                       fma_bound_ms=max(row["bytes"] / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3)
+            lib_text += f", on K/V repeated to H heads {rep_backend} {rep_ms * 1e3:.2f} us"
+            del kr, vr
+        fma = "" if "fma_bound_ms" not in row else f", float32-FMA bound {row['fma_bound_ms'] * 1e3:.1f} us"
         rows[("flash_attention", b, s, t, h, kv, d, dtype, causal)] = row
         print(f"  flash_attention (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {dtype} "
               f"{'causal' if causal else 'full'} [{want}]: max |diff| {err:.3g} (mean |ref| {mag:.3g}, "
               f"largest |diff| / limit {worst:.3g}); " + describe(row)
-              + f"; SDPA backend {backend} ({', '.join(n[:60] for n in names[:3])})")
+              + f" ({issued:.4g} operations at {ops_per_s / 1e12:g} TFLOP/s{fma}); {lib_text} "
+              f"({', '.join(n[:60] for n in names[:3])})")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     print(f"  B4 launches by body in this phase (comparisons and timing): {flash_attention.launches_by_body}")
@@ -1012,6 +1064,16 @@ def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
             "gemm_ms": gemm / 1e3, "calls": calls}
 
 
+def check_prefill_body(label: str, cell: dict, by_body: dict, layers: int) -> None:
+    """Each prefill layer launched B4 once on the cell's ``prefill_body``
+    and no other body ran (nothing to check where the cell names none)."""
+    if cell["prefill_body"] is None:
+        return
+    want = {body: layers if body == cell["prefill_body"] else 0 for body in by_body}
+    if by_body != want:
+        fail(f"{label}: B4 launches by body {by_body}, expected {want}")
+
+
 def serve_path(torch, family: str) -> tuple[dict, dict]:
     """The full-width LM serving path of ``SERVE_CELLS[family]`` through the
     launcher's functions: prefill (its kernel once per layer), greedy decode
@@ -1021,6 +1083,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     weights before it returns."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
     from repro_torch.models import mamba2
     from repro_torch.models.transformer import forward_lm, init_params
@@ -1054,6 +1117,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     reset_launches()
     res = launcher.serve(params, cfg, run, batch, n, keep_logits=True)
     launches = read_launches()
+    by_body = dict(flash_attention.launches_by_body)
     peak = torch.cuda.max_memory_allocated()
 
     step = torch.stack(res.step_logits, dim=1)                       # [B, n, V]
@@ -1070,6 +1134,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
         expect[cell["decode"][0]] = cfg.num_layers * n
     if {k: v for k, v in launches.items() if v} != expect:
         fail(f"serve {arch}: launches {launches}, expected {expect}")
+    check_prefill_body(f"serve {arch}", cell, by_body, cfg.num_layers)
 
     # teacher forcing: decode step t fed token t at position t == the full
     # forward over the fed tokens at t
@@ -1088,7 +1153,8 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     print(f"  prefill [{b}x{prompt}] {res.prefill_s * 1e3:.1f} ms = {prefill_tok_s:.1f} tokens/s; "
           f"decode {n} tokens/seq in {res.decode_s * 1e3:.1f} ms = {res.decode_s * 1e3 / n:.2f} ms/step "
           f"= {decode_tok_s:.1f} tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches "
-          f"{launches} ({per}; layers {cfg.num_layers})")
+          f"{launches} ({per}; layers {cfg.num_layers})"
+          + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
     print(f"  teacher forcing over {n} steps: max |decode - forward| {diff:.4g} = "
           f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f} "
           f"(required 1)")
@@ -1133,7 +1199,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     metrics = dict(arch=arch, params=n_params, batch=b, prompt=prompt, tokens=n,
                    prefill_ms=res.prefill_s * 1e3, prefill_tok_s=prefill_tok_s,
                    decode_ms_per_step=res.decode_s * 1e3 / n, decode_tok_s=decode_tok_s,
-                   max_memory_allocated=peak, teacher_forcing_max_diff=diff,
+                   max_memory_allocated=peak, b4_by_body=by_body, teacher_forcing_max_diff=diff,
                    teacher_forcing_rel=diff / scale, argmax_agreement=agree,
                    prefill_profile=pre, decode_profile=dec)
     del params, res, prof
@@ -1146,6 +1212,7 @@ def reduced_serve(torch, family: str) -> None:
     the same on the CPU: the same tokens, logits and decode caches within
     1e-4 (weights made on the CPU and copied)."""
     from repro_torch import convert
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import init_params
 
@@ -1156,8 +1223,11 @@ def reduced_serve(torch, family: str) -> None:
     p_cpu = init_params(cfg, seed=0, device=cpu)
     p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
     prompt = launcher.make_prompt(cfg, 2, cell["reduced_prompt"], cpu)
+    before = dict(flash_attention.launches_by_body)
     gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(cuda)}, 8,
                          keep_logits=True)
+    by_body = {k: v - before[k] for k, v in flash_attention.launches_by_body.items()}
+    check_prefill_body(f"reduced serve {arch}", cell, by_body, cfg.num_layers)
     ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
     pairs = [("prefill", gpu.prefill_logits, ref.prefill_logits)]
     pairs += [(f"step {i}", a, b) for i, (a, b) in enumerate(zip(gpu.step_logits, ref.step_logits))]
@@ -1170,7 +1240,8 @@ def reduced_serve(torch, family: str) -> None:
     fields = sorted({f for layer in gpu.cache.layers for f in layer._fields})
     print(f"  reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, prompt "
           f"{cell['reduced_prompt']}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
-          f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)")
+          f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)"
+          + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
 
 
 def bf16_prefill_path(torch) -> tuple[dict, dict]:
@@ -1212,7 +1283,8 @@ def bf16_prefill_path(torch) -> tuple[dict, dict]:
     if logits.shape != (b, cfg.vocab) or logits.dtype != torch.bfloat16 or not bool(torch.isfinite(logits).all()):
         fail(f"bf16 prefill: logits {tuple(logits.shape)} {logits.dtype}, finite "
              f"{bool(torch.isfinite(logits).all())}")
-    if launches != {"flash_attention": cfg.num_layers} or by_body != {"simt": 0, "wgmma": cfg.num_layers}:
+    if (launches != {"flash_attention": cfg.num_layers}
+            or by_body != {"simt": 0, "wgmma": cfg.num_layers, "wgmma_f32": 0}):
         fail(f"bf16 prefill: launches {launches}, by body {by_body}; expected {cfg.num_layers} of 'wgmma'")
     tok_s = b * prompt / secs
     print(f"  {cfg.num_layers} layers, {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB bf16); prefill [{b}x{prompt}] "
@@ -1292,7 +1364,7 @@ def main() -> int:
     for name, info in built.items():
         print(f"  {name}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"    {line.strip()}")
     check_b4_build(built["flash_attention"])
     check_b6_build(built["ssd_scan"])
@@ -1371,7 +1443,9 @@ def main() -> int:
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
         if "body" in row:
-            summary[-1].update(body=row["body"], dtype=row["dtype"])
+            summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms",
+                                                     "library_gqa_ms", "library_repeat_ms",
+                                                     "sdpa_backend", "sdpa_repeat_backend") if k in row})
     print(json.dumps({"serve": serve_metrics["dense"], "serve_ssm": serve_metrics["ssm"],
                       "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,

@@ -12,33 +12,33 @@
 // TPU kernel's (row >= column, counted from the top left), also when the
 // query and key lengths differ.  Keys at or past T get weight 0 (-inf).
 //
-// Two bodies, chosen by the caller from (dtype, d) before the launch and
+// Three bodies, chosen by the caller from (dtype, d) before the launch and
 // passed in as ``body``; the entry point refuses a body that cannot take
-// the shape.  Both keep the TPU kernel's arithmetic: P is float32 there
-// (kernel.py:54, 74-75), so neither rounds it to bfloat16 alone.
+// the shape.  All keep the TPU kernel's arithmetic: P is float32 there
+// (kernel.py:54, 74-75), so none rounds it to bfloat16 or TF32 alone.
 //
-// "simt" (body 0): float32, and bfloat16 with d not a multiple of 16 or
-// above 128.  One block of 128 threads per (query tile of BQ rows,
-// batch*head).  q, k and v are read in their [B, S, H, d] / [B, T, KV, d]
-// layouts through their strides, so nothing is transposed or repeated in
-// device memory.  The block stages its Q tile once, then walks the K/V
-// tiles in order: each is staged in shared memory (converted to float32),
-// the BQ x BK scores go to shared memory, one thread per row updates that
-// row's running maximum and sum and leaves exp(s - m) in place, and every
-// thread rescales and adds to its 4 rows x DMAX/CG output columns held in
-// registers.  Causal blocks skip the K/V tiles wholly above the diagonal
-// (first column > last row of the tile), as the TPU kernel does; the
-// heaviest query tiles are scheduled first.  Ragged S and T are handled by
-// bounds: rows past S are computed on zeros and never written, columns past
-// T get weight 0.  Q and K rows are stored with an odd stride (d + 1) so the
-// score loop reads shared memory without bank conflicts.  d must be a
-// multiple of 8 (16-byte loads) and at most 256; the tile shapes are chosen
-// by d's bucket (64, 128, 256).  Bound on the H100: at the serve path's
-// prefill (B, S, H, KV, d) = (4, 2048, 40, 10, 128), causal, float32, one
-// launch reads q, k, v once and writes out (419 MB, 0.13 ms at 3.35 TB/s)
-// and does 4*d flops per live (row, column) pair (1.72e11 flops, 2.57 ms at
-// 67 TFLOP/s of float32): it is bound by arithmetic, which this body runs
-// as float32 FMAs on the CUDA cores.
+// "simt" (body 0): float32 with d above 128 (gemma's 256), and bfloat16 with d
+// not a multiple of 16 or above 128.  One block of 128 threads per (query tile
+// of BQ rows, batch*head).  q, k and v are read in their [B, S, H, d] / [B, T,
+// KV, d] layouts through their strides, so nothing is transposed or repeated
+// in device memory.  The block stages its Q tile once, then walks the K/V
+// tiles in order: each is staged in shared memory (converted to float32), the
+// BQ x BK scores go to shared memory, one thread per row updates that row's
+// running maximum and sum and leaves exp(s - m) in place, and every thread
+// rescales and adds to its 4 rows x DMAX/CG output columns held in registers.
+// Causal blocks skip the K/V tiles wholly above the diagonal (first column >
+// last row of the tile), as the TPU kernel does; the heaviest query tiles are
+// scheduled first.  Ragged S and T are handled by bounds: rows past S are
+// computed on zeros and never written, columns past T get weight 0.  Q and K
+// rows are stored with an odd stride (d + 1) so the score loop reads shared
+// memory without bank conflicts.  d must be a multiple of 8 (16-byte loads)
+// and at most 256; the tile shapes are chosen by d's bucket (64, 128, 256).
+// Bound on the H100: at (B, S, H, KV, d) = (4, 2048, 40, 10, 128), causal,
+// float32 (the float32 serve prefill's shape, which "wgmma_f32" runs), one
+// launch reads q, k, v once and writes out (419 MB, 0.13 ms at 3.35 TB/s) and
+// does 4*d flops per live (row, column) pair (1.72e11 flops, 2.57 ms at 67
+// TFLOP/s of float32): it is bound by arithmetic, which this body runs as
+// float32 FMAs on the CUDA cores.
 //
 // "wgmma" (body 1): bfloat16 with d a multiple of 16 up to 128, on the
 // tensor cores.  One block of two warpgroups (256 threads) per (128 query
@@ -75,6 +75,48 @@
 // Not yet here: TMA copies, a producer warp, the 128-byte swizzle, and
 // overlap of a product with the softmax next to it (the block waits for
 // each product before the softmax that reads it).
+//
+// "wgmma_f32" (body 2): float32 with d a multiple of 8 up to 128, on the
+// tensor cores as 3xTF32: a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi with
+// x_hi = tf32(x), x_lo = tf32(x - x_hi), both by cvt.rna (to nearest, ties
+// away from zero), the products summed in the float32 accumulators.  Three
+// products on both Q.K^T and P.V: emulated on the CPU against the card
+// check's float32 gate of 1e-4 (tests/test_torch_attention.py), three
+// reach 0.017 of it at phi3's heads, one breaks it 8.7x, and dropping any
+// one of the six breaks it 2.9x or more.  The same schedule, causal skip,
+// GQA by index, masks, zero-fill and ex2 softmax as "wgmma"; P is split
+// into P_hi + P_lo in registers (l sums the float32 p).  What TF32 changes:
+//   wgmma reads .tf32 operands K-major only (no transpose bit), in k-steps
+//     of 8 values (two 16-byte chunks, so the same INTERLEAVE layout and
+//     descriptors as "wgmma"'s with 4 values a chunk).  Q.K^T reads Q and
+//     K as stored; V is stored transposed, V^T: a row per head-dim column,
+//     the tile's keys contiguous.
+//   P feeds wgmma m64n{DN}k8 as A from registers.  A thread's A fragment of
+//     an 8-key slice is (row g, position t), (g+8, t), (g, t+4), (g+8, t+4)
+//     (t = lane % 4, as mma.m16n8k8's tf32 A), while the S accumulator gives
+//     it keys 2t and 2t+1; so V^T's keys are permuted within each slice (key
+//     j at position (j%2)*4 + j/2) and no shuffle is needed: the sum over
+//     keys does not care about their order.
+//   One block of two warpgroups (256 threads) per (128 query rows,
+//     batch*head), each warpgroup owning 64 rows; K/V tiles of 32 keys,
+//     shared by both (a warpgroup skips the products of a causal tile wholly
+//     above its rows, but still copies, splits and meets every barrier).
+//   Copies go raw into the lo buffers by cp.async (Q and K 16 bytes a
+//     thread; V 4 bytes a thread, transposed on the way, a warp's 32 values
+//     on 32 banks) and are split in place, lo -> (hi, lo).
+//   Shared memory: the hi and lo halves of Q (128 rows), of K and of V^T,
+//     128 + 32 + 32 KB at d = 128 (196,608 bytes, under 227 KB), one slot
+//     each for K and V.  A slot's copy and split overlap the other product:
+//     V(kt) is split while Q.K(kt)^T runs, K(kt+1) is copied during the
+//     softmax and split while P.V(kt) runs, V(kt+1) is copied at the end of
+//     the tile.  ptxas gives 158 registers a thread at d = 128.
+//   What bounds it is the copies into shared memory, not the products: the
+//     time follows the bytes copied per query row, so the two warpgroups
+//     share each tile (one warpgroup with tiles of 64 keys, or copying K and
+//     V already split into their halves, twice the bytes, was slower).
+// Bound on the H100 at (4, 2048, 2048, 40, 10, 128) causal: 1.72e11
+// float32 operations (2.57 ms at 67 TFLOP/s of float32 FMAs), issued as
+// 5.16e11 TF32 operations, 1.04 ms at 495 TFLOP/s; its bytes take 0.13 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -366,6 +408,52 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// One K/V tile's step of the online softmax, on the accumulator of S =
+// Q.K^T (wgmma m64n{2*NS}): s[4j + e] is row row0 + 8*(e/2), column
+// k0 + 8j + t2 + e%2.  Keys at or past Tk get -inf (weight 0) and, when
+// causal, keys right of a row's diagonal -1e30 (the TPU kernel's mask),
+// where the tile reaches past Tk or past the warpgroup's first row
+// first_row.  Masks and maxima on the raw scores (the scale is positive);
+// p = 2^(s*c - m) with m in scaled units, one FMA before the ex2, left in
+// s; l and the output accumulator o rescaled by 2^(m_old - m_new).
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&o)[NO], float (&m)[2],
+                                             float (&l)[2], int k0, int Tk, int row0, int t2,
+                                             int first_row, int causal, float scale_log2) {
+  constexpr int kCols = 2 * NS;
+  if (k0 + kCols > Tk || (causal && k0 + kCols - 1 > first_row)) {
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + t2 + (e & 1);
+        if (col >= Tk) s[4 * j + e] = __int_as_float(0xff800000);      // -inf: weight 0
+        else if (causal && row0 + 8 * (e >> 1) < col) s[4 * j + e] = kNegInf;
+      }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float alpha[2], neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
 
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
@@ -449,14 +537,15 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Rows r0 .. r0+ROWS-1 of a [rows, DC*8] bfloat16 view (row stride in
-// elements) into the INTERLEAVE layout with LDC chunks of 16 bytes a row
-// (LDC >= DC): one cp.async.cg per chunk, the 8 rows of a core matrix on
-// neighbouring threads so that a warp writes 512 contiguous bytes.  Rows at
-// or past n_valid are zero-filled.
-template <int ROWS, int DC, int LDC>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int r0, int n_valid) {
+// Rows r0 .. r0+ROWS-1 of a [rows, DC*16 bytes] view of bfloat16 or
+// float32 (row stride in elements) into the INTERLEAVE layout with LDC
+// chunks of 16 bytes a row (LDC >= DC): the chunk at (row r, chunk c)
+// lands at ((r/8)*LDC + c)*128 + (r%8)*16, one cp.async.cg each, the 8 rows
+// of a core matrix on neighbouring threads so that a warp writes 512
+// contiguous bytes.  Rows at or past n_valid are zero-filled.
+template <int ROWS, int DC, int LDC, typename T>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const T* src, long long row_stride,
+                                          int r0, int n_valid) {
   constexpr int kChunks = ROWS * DC;
 #pragma unroll
   for (int n = 0; n < (kChunks + kWgThreads - 1) / kWgThreads; ++n) {
@@ -466,7 +555,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const __nv_bfloat1
     const int r = g * 8 + r8;
     unsigned char* p = dst + (g * LDC + c) * 128 + r8 * 16;
     if (r0 + r < n_valid)
-      cp_async16(p, src + static_cast<long long>(r0 + r) * row_stride + c * 8);
+      cp_async16(p, src + static_cast<long long>(r0 + r) * row_stride + c * (16 / sizeof(T)));
     else
       *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -555,40 +644,7 @@ flash_attention_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     wgmma_wait_all();
     fence_regs(s);
 
-    // s[4j + e]: row row0 + 8*(e/2), column k0 + 8j + t2 + e%2.  Masks and
-    // maxima on the raw scores (the scale is positive); p = 2^(s*c - m)
-    // with m in scaled units, one FMA before the ex2.
-    if (k0 + kKeys > Tk || (causal && k0 + kKeys - 1 > gq0)) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + t2 + (e & 1);
-          if (col >= Tk) s[4 * j + e] = __int_as_float(0xff800000);      // -inf: weight 0
-          else if (causal && row0 + 8 * (e >> 1) < col) s[4 * j + e] = kNegInf;
-        }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float alpha[2], neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      neg_m[r] = -m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = ex2(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));
-      l[(i >> 1) & 1] += s[i];
-    }
-#pragma unroll
-    for (int i = 0; i < DN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    softmax_tile(s, o, m, l, k0, Tk, row0, t2, gq0, causal, scale_log2);
     // A fragment of k-slice j, register r: s[8j + 2r] (low half), s[8j + 2r + 1]
     uint32_t p_hi[4][4], p_lo[4][4];
 #pragma unroll
@@ -668,9 +724,330 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 
 }  // namespace wg
 
+// ---------------------------------------------------------- "wgmma_f32" body
+namespace tf {
+
+using wg::cp_async_commit;
+using wg::fence_proxy_async;
+using wg::fence_regs;
+using wg::kRows;                          // the block is "wgmma"'s: two warpgroups of 64 query rows
+using wg::kWgThreads;
+using wg::load_tile;
+using wg::make_desc;
+using wg::smem_addr;
+using wg::softmax_tile;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_wait_all;
+
+constexpr int kKeys = 32;                 // keys of a K/V tile
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// x rounded to TF32 by cvt.rna (to nearest, ties away from zero), the low
+// 13 bits cleared, so that the value is the one wgmma reads
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+#define TF_ACC16                                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+      "+f"(d[15])
+#define TF_ACC32                                                                                   \
+  TF_ACC16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),   \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TF_ACC48                                                                                   \
+  TF_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),          \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+#define TF_ACC64                                                                                   \
+  TF_ACC48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),          \
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),   \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TF_REGS16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define TF_REGS32 TF_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define TF_REGS48 TF_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define TF_REGS64 TF_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// O += P.V, wgmma m64n{N}k8 with NACC = N/2 accumulators a thread: A (4 tf32
+// a thread) from registers, B (V^T, K-major) from shared memory
+#define TF_MMA_RS(NACC, N, REGS, ACC, A0, A1, A2, A3, B, P)                                      \
+  __device__ __forceinline__ void mma_rs(float (&d)[NACC], const uint32_t (&a)[4], uint64_t b) {   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                                  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, "           \
+                 "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1;\n}\n"                \
+                 : ACC                                                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                    \
+  }
+TF_MMA_RS(16, 32, TF_REGS16, TF_ACC16, 16, 17, 18, 19, 20, 21)
+TF_MMA_RS(32, 64, TF_REGS32, TF_ACC32, 32, 33, 34, 35, 36, 37)
+TF_MMA_RS(48, 96, TF_REGS48, TF_ACC48, 48, 49, 50, 51, 52, 53)
+TF_MMA_RS(64, 128, TF_REGS64, TF_ACC64, 64, 65, 66, 67, 68, 69)
+#undef TF_MMA_RS
+
+// S (+)= Q.K^T, wgmma m64n32k8, A and B from shared memory, both K-major
+// (tf32 has no transpose bit)
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" TF_REGS16 "}, %16, %17, p, 1, 1;\n}\n"
+               : TF_ACC16
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Keys k0 .. k0+kKeys-1 of a [keys, D] float32 view as V^T: row n (a
+// head-dim column) holds the tile's keys contiguous, so that P.V reads V
+// K-major.  Within each 8-key slice the keys are permuted: key j sits at
+// position (j%2)*4 + j/2, because the S accumulator gives a thread keys
+// (2t, 2t+1) of the slice and P's A fragment wants positions (t, t+4) (see
+// the note).  One 4-byte cp.async a value; a warp copies 8 columns x 4 keys
+// of one parity, which land on 32 distinct banks.  Keys at or past n_valid
+// are 0.
+template <int D>
+__device__ __forceinline__ void load_vt(unsigned char* dst, const float* src, long long row_stride,
+                                        int k0, int n_valid) {
+  constexpr int kQuads = kKeys / 4;                // (8 columns) x (4 keys of a slice and parity)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nl = lane % 8, m = lane / 8;
+#pragma unroll 4
+  for (int item = warp; item < (D / 8) * kQuads; item += kWgThreads / 32) {
+    const int g8 = item / kQuads, quad = item % kQuads;
+    const int slice = quad / 2, parity = quad % 2;
+    const int key = k0 + 8 * slice + 2 * m + parity;
+    unsigned char* p = dst + ((g8 * kQuads + 2 * slice + parity) * 128 + nl * 16 + m * 4);
+    if (key < n_valid)
+      cp_async4(p, src + static_cast<long long>(key) * row_stride + g8 * 8 + nl);
+    else
+      *reinterpret_cast<float*>(p) = 0.f;
+  }
+}
+
+// In place: each raw float32 x in lo becomes tf32(x) in hi and
+// tf32(x - tf32(x)) in lo, at the same offset (BYTES of each).
+template <int BYTES>
+__device__ __forceinline__ void split(unsigned char* hi, unsigned char* lo) {
+#pragma unroll 4
+  for (int i = threadIdx.x * 16; i < BYTES; i += kWgThreads * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(lo + i);
+    const float4 h = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+    *reinterpret_cast<float4*>(hi + i) = h;
+    *reinterpret_cast<float4*>(lo + i) =
+        make_float4(tf32(x.x - h.x), tf32(x.y - h.y), tf32(x.z - h.z), tf32(x.w - h.w));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int S, int Tk, int H,
+                     int KV, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                     long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
+                     int causal, float scale_log2) {
+  constexpr int DN = D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128;   // P.V's N
+  constexpr int C = D / 4;                          // 16-byte chunks of a Q/K row
+  constexpr int kQBytes = kRows * D * 4, kKBytes = kKeys * D * 4, kVBytes = DN * kKeys * 4;
+  constexpr int kVRowBytes = D * kKeys * 4;         // V^T's rows 0..D-1; D..DN-1 stay zero
+  extern __shared__ __align__(128) unsigned char tiles[];
+  unsigned char* sQh = tiles;
+  unsigned char* sQl = sQh + kQBytes;
+  unsigned char* sKh = sQl + kQBytes;
+  unsigned char* sKl = sKh + kKBytes;
+  unsigned char* sVh = sKl + kKBytes;
+  unsigned char* sVl = sVh + kVBytes;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = warp / 4;                      // this thread's warpgroup: rows 64*group ..
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest causal tiles first
+  const int gq0 = q0 + 64 * group;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KV);
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
+
+  if constexpr (DN > D) {
+    for (int i = kVRowBytes + tid * 16; i < kVBytes; i += kWgThreads * 16) {
+      *reinterpret_cast<uint4*>(sVh + i) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(sVl + i) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  int n_tiles = (Tk + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kKeys + 1);
+  load_tile<kRows, C, C>(sQl, qb, q_ss, q0, S);
+  load_tile<kKeys, C, C>(sKl, kb, k_st, 0, Tk);
+  cp_async_commit();
+  load_vt<D>(sVl, vb, v_st, 0, Tk);
+  cp_async_commit();
+  cp_async_wait<1>();                              // Q and K(0), not V(0)
+  __syncthreads();
+  split<kQBytes>(sQh, sQl);
+  split<kKBytes>(sKh, sKl);
+  fence_proxy_async();
+  __syncthreads();
+
+  // Q and K: chunks c and c+1 (K) 128 B apart, 8-row groups C*128 B apart;
+  // a warpgroup's 64 Q rows are 8 row groups.  V^T: chunks of 4 keys 128 B
+  // apart, 8-column groups (kKeys/4)*128 B apart.  A k-step of 8 values is
+  // two chunks, 256 B further: its descriptor is the first one plus
+  // 256 >> 4 = 16 in the address field.
+  constexpr uint32_t kLbo = 128, kQKSbo = C * 128, kVSbo = (kKeys / 4) * 128;
+  const uint32_t q_rows = group * 64 * D * 4;
+  const uint64_t dqh = make_desc(smem_addr(sQh) + q_rows, kLbo, kQKSbo);
+  const uint64_t dql = make_desc(smem_addr(sQl) + q_rows, kLbo, kQKSbo);
+  const uint64_t dkh = make_desc(smem_addr(sKh), kLbo, kQKSbo), dkl = make_desc(smem_addr(sKl), kLbo, kQKSbo);
+  const uint64_t dvh = make_desc(smem_addr(sVh), kLbo, kVSbo), dvl = make_desc(smem_addr(sVl), kLbo, kVSbo);
+
+  float o[DN / 2], s[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int row0 = gq0 + (warp % 4) * 16 + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int t2 = 2 * (lane % 4);                   // and columns 8j + t2, 8j + t2 + 1
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kKeys;
+    const bool more = kt + 1 < n_tiles;
+    // a causal tile wholly above this warpgroup's rows adds nothing to them;
+    // the warpgroup still copies, splits and meets every barrier
+    const bool live = !(causal && k0 > gq0 + 63);
+    if (live) {                                    // S = Q_hi.K_hi + Q_hi.K_lo + Q_lo.K_hi
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {          // the first overwrites s
+        mma_ss(s, dqh + 16 * ks, dkh + 16 * ks, ks > 0);
+        mma_ss(s, dqh + 16 * ks, dkl + 16 * ks, 1);
+        mma_ss(s, dql + 16 * ks, dkh + 16 * ks, 1);
+      }
+      wgmma_commit();
+    }
+    // while the tensor cores run it: V(kt), landed, split in place
+    cp_async_wait<0>();
+    __syncthreads();
+    split<kVRowBytes>(sVh, sVl);
+    fence_proxy_async();
+    if (live) {
+      wgmma_wait_all();
+      fence_regs(s);
+    }
+    __syncthreads();                               // every S(kt) product done: K's slot is free
+    if (more) {
+      load_tile<kKeys, C, C>(sKl, kb, k_st, k0 + kKeys, Tk);
+      cp_async_commit();
+    }
+
+    // P's halves stay live until the products that read them are done
+    uint32_t p_hi[kKeys / 8][4], p_lo[kKeys / 8][4];
+    if (live) {
+      softmax_tile(s, o, m, l, k0, Tk, row0, t2, gq0, causal, scale_log2);
+      // A fragment of k-slice j: (row g, position t), (g + 8, t), (g, t + 4),
+      // (g + 8, t + 4); positions t and t + 4 hold keys 2t and 2t + 1 (V^T's
+      // permutation), which are this thread's s[4j], s[4j + 2], s[4j + 1], s[4j + 3]
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const float a[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float hi = tf32(a[r]);
+          p_hi[j][r] = __float_as_uint(hi);
+          p_lo[j][r] = __float_as_uint(tf32(a[r] - hi));
+        }
+      }
+      // O += P_hi.V_hi + P_hi.V_lo + P_lo.V_hi
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        mma_rs(o, p_hi[j], dvh + 16 * j);
+        mma_rs(o, p_hi[j], dvl + 16 * j);
+        mma_rs(o, p_lo[j], dvh + 16 * j);
+      }
+      wgmma_commit();
+    }
+    if (more) {                                    // while they run: K(kt+1), landed, split
+      cp_async_wait<0>();
+      __syncthreads();
+      split<kKBytes>(sKh, sKl);
+      fence_proxy_async();
+    }
+    if (live) {
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+    }
+    __syncthreads();                               // every P.V(kt) product done: V's slot is free
+    if (more) {
+      load_vt<D>(sVl, vb, v_st, k0 + kKeys, Tk);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + t2) =
+          make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                   int H, int KV, const long long* st, int causal, float scale, cudaStream_t stream) {
+  constexpr int DN = D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128;
+  auto kernel = flash_attention_tf32<D>;
+  constexpr size_t smem = static_cast<size_t>(2 * kRows * D + 2 * kKeys * D + 2 * DN * kKeys) * 4;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, Tk, H, KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, scale * wg::kLog2e);
+  return cudaGetLastError();
+}
+
+// d a multiple of 8 up to 128, one instantiation each
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                       int H, int KV, int d, const long long* st, int causal, float scale,
+                       cudaStream_t stream) {
+#define TF_CASE(D) \
+  case D: return launch<D>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
+  switch (d) {
+    TF_CASE(8) TF_CASE(16) TF_CASE(24) TF_CASE(32) TF_CASE(40) TF_CASE(48) TF_CASE(56) TF_CASE(64)
+    TF_CASE(72) TF_CASE(80) TF_CASE(88) TF_CASE(96) TF_CASE(104) TF_CASE(112) TF_CASE(120) TF_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef TF_CASE
+}
+
+}  // namespace tf
+
 }  // namespace
 
-// body: 0 "simt", 1 "wgmma" (bfloat16, d a multiple of 16 up to 128).
+// body: 0 "simt", 1 "wgmma" (bfloat16, d a multiple of 16 up to 128),
+// 2 "wgmma_f32" (float32, d a multiple of 8 up to 128).
 // dtype: 0 float32, 1 bfloat16.  q [B,S,H,d], k/v [B,T,KV,d] with unit last
 // stride; strides in elements: q (batch, seq, head), k (batch, seq, head),
 // v (batch, seq, head).  out is a contiguous [B,S,H,d] of the same type.
@@ -683,15 +1060,19 @@ extern "C" int flash_attention_fwd(int body, int dtype, const void* q, const voi
                                    long long v_sb, long long v_st, long long v_sh,
                                    int causal, float scale, void* stream) {
   if (d < 8 || d > 256 || d % 8 != 0 || KV <= 0 || H % KV != 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1) || (body != 0 && body != 1))
+      (dtype != 0 && dtype != 1) || body < 0 || body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (body == 1 && (dtype != 1 || d % 16 != 0 || d > 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 2 && (dtype != 0 || d > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (body == 1)
     err = wg::dispatch_d(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
+  else if (body == 2)
+    err = tf::dispatch_d(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
   else if (dtype == 0)
     err = dispatch_d<float>(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, s);
   else

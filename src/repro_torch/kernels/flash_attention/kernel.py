@@ -2,11 +2,13 @@
 source's note): causal or full GQA attention forward, float32 or
 bfloat16, d a multiple of 8 up to 256.
 
-The source has two bodies, and ``select_body`` picks one from the dtype
-and the head dim before the launch: "wgmma" (the tensor cores) for
-bfloat16 with d a multiple of 16 up to 128, "simt" (float32 FMAs on the
-CUDA cores) for everything else.  This is a dispatch by type and width,
-not a fallback: a launch that fails raises."""
+The source has three bodies, and ``select_body`` picks one from the
+dtype and the head dim before the launch: "wgmma" (the tensor cores, bf16
+products) for bfloat16 with d a multiple of 16 up to 128, "wgmma_f32"
+(the tensor cores, three TF32 products for each float32 one) for float32
+with d up to 128, "simt" (float32 FMAs on the CUDA cores) for the rest:
+gemma's d = 256, and bfloat16 at other widths.  This is a dispatch by type
+and width, not a fallback: a launch that fails raises."""
 from __future__ import annotations
 
 import ctypes
@@ -21,12 +23,16 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 9 + [_I, ctypes.c_float, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BODIES = {"simt": 0, "wgmma": 1}
+BODIES = {"simt": 0, "wgmma": 1, "wgmma_f32": 2}
 
 
 def select_body(dtype: torch.dtype, d: int) -> str:
-    """B4's body for inputs of ``dtype`` and head dim ``d``."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "simt"
+    """B4's body for inputs of ``dtype`` and head dim ``d`` (a multiple of 8)."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128:
+        return "wgmma"
+    if dtype == torch.float32 and d % 8 == 0 and d <= 128:
+        return "wgmma_f32"
+    return "simt"
 
 
 def check_head_dim(d: int) -> None:

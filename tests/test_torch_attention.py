@@ -18,8 +18,9 @@ Two behaviours of the reference are pinned here:
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``.  What the CPU can hold of B4's bodies is
 held here: which body a (dtype, d) takes and the numerical
-design of the "wgmma" body (P carried as two bfloat16 halves), emulated
-in float32 against the card check's gate.
+designs of the tensor-core bodies, emulated in float32 against the card
+check's gates: "wgmma" carries P as two bfloat16 halves, "wgmma_f32" forms
+each float32 product as three TF32 ones.
 """
 import math
 
@@ -186,7 +187,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
     assert (t_fa_kernel.flash_attention.launches, t_fd_kernel.flash_decode.launches) == before
 
 
-# ------------------------------------------------------- B4's two bodies
+# ------------------------------------------------------- B4's three bodies
 @pytest.mark.parametrize("dtype,d,body", [
     (torch.bfloat16, 128, "wgmma"),     # phi3-medium, granite-20b, qwen2.5-32b, dbrx
     (torch.bfloat16, 96, "wgmma"),      # phi3-vision
@@ -199,8 +200,14 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
     (torch.bfloat16, 40, "simt"),       # a multiple of 8 only
     (torch.bfloat16, 136, "simt"),
     (torch.bfloat16, 256, "simt"),      # gemma-7b
-    (torch.float32, 128, "simt"),
-    (torch.float32, 64, "simt"),
+    (torch.float32, 128, "wgmma_f32"),  # the float32 serve path's prefill (phi3-medium)
+    (torch.float32, 64, "wgmma_f32"),
+    (torch.float32, 96, "wgmma_f32"),
+    (torch.float32, 16, "wgmma_f32"),   # the reduced dense model
+    (torch.float32, 40, "wgmma_f32"),   # a multiple of 8 is enough: k-steps of 8
+    (torch.float32, 8, "wgmma_f32"),
+    (torch.float32, 136, "simt"),
+    (torch.float32, 256, "simt"),       # gemma-7b
 ])
 def test_body_selection_table(dtype, d, body):
     assert t_fa_kernel.select_body(dtype, d) == body
@@ -210,15 +217,16 @@ def test_every_registered_head_width_takes_the_tensor_cores_in_bfloat16_but_gemm
     widths = {name: cfg.resolved_head_dim for name, cfg in ARCHS.items() if cfg.num_heads}
     simt = {name for name, d in widths.items() if t_fa_kernel.select_body(torch.bfloat16, d) == "simt"}
     assert simt == {"gemma-7b"}
-    assert all(t_fa_kernel.select_body(torch.float32, d) == "simt" for d in widths.values())
+    f32 = {name: t_fa_kernel.select_body(torch.float32, d) for name, d in widths.items()}
+    assert {name for name, body in f32.items() if body != "wgmma_f32"} == {"gemma-7b"}
+    assert f32["gemma-7b"] == "simt"
 
 
-def _tiled_attention(q, k, v, *, split_p: bool, tile: int = 64):
-    """The "wgmma" body's arithmetic in float32 on the CPU: K/V tiles of 64
-    keys, an online softmax in float32 (the top-left causal rule), bf16 ×
-    bf16 products summed in float32, and P = exp(s − m) rounded to bfloat16
-    once (``split_p=False``) or carried as P_hi + P_lo, two bfloat16 halves;
-    the output is rounded once to q's dtype."""
+def _tiled_attention(q, k, v, *, pv, qk=torch.matmul, tile: int = 64):
+    """A tensor-core body's arithmetic in float32 on the CPU: K/V tiles of
+    ``tile`` keys, an online softmax in float32 (the top-left causal rule;
+    l sums the float32 p), S = qk(Q, Kᵀ) and P·V = pv(P, V); the output is
+    rounded once to q's dtype."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)
@@ -229,20 +237,27 @@ def _tiled_attention(q, k, v, *, split_p: bool, tile: int = 64):
     o = torch.zeros(b, h, s, d)
     rows = torch.arange(s)[:, None]
     for k0 in range(0, t, tile):
-        scores = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / math.sqrt(d)
+        scores = qk(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2)) / math.sqrt(d)
         cols = torch.arange(k0, min(k0 + tile, t))[None, :]
         scores = torch.where(rows >= cols, scores, torch.tensor(-1e30))
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         p = torch.exp(scores - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        p_hi = p.bfloat16().float()
-        pv = p_hi @ vf[:, :, k0:k0 + tile]
-        if split_p:
-            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, k0:k0 + tile]
-        o = o * alpha + pv
+        o = o * alpha + pv(p, vf[:, :, k0:k0 + tile])
         m = m_new
     return (o / l.clamp_min(1e-30)).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _bf16_p_product(split_p: bool):
+    """P·V as the "wgmma" body forms it (bf16 × bf16 products summed in
+    float32): P = exp(s − m) rounded to bfloat16 once (``split_p=False``)
+    or carried as P_hi + P_lo, two bfloat16 halves."""
+    def pv(p, v):
+        p_hi = p.bfloat16().float()
+        out = p_hi @ v
+        return out + (p - p_hi).bfloat16().float() @ v if split_p else out
+    return pv
 
 
 def test_split_p_holds_the_card_gate_where_a_bf16_p_breaks_it():
@@ -262,5 +277,70 @@ def test_split_p_holds_the_card_gate_where_a_bf16_p_breaks_it():
     def worst(out):
         return float(((out.float() - ref).abs() / limit).max())
 
-    assert worst(_tiled_attention(q, k, v, split_p=True)) <= 1.0
-    assert worst(_tiled_attention(q, k, v, split_p=False)) > 2.0
+    assert worst(_tiled_attention(q, k, v, pv=_bf16_p_product(True))) <= 1.0
+    assert worst(_tiled_attention(q, k, v, pv=_bf16_p_product(False))) > 2.0
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: the low 13
+    bits to nearest, ties away from zero.  Adding half the dropped unit to
+    the bit pattern and clearing the bits rounds the magnitude so, for
+    either sign."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, passes: int):
+    """a @ b as the "wgmma_f32" body forms it: one TF32 product (passes=1),
+    or three, a_hi·b_hi + a_hi·b_lo + a_lo·b_hi with x_lo = tf32(x − x_hi);
+    each product of two TF32 values is exact in float32, and the sums are
+    float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = a_hi @ b_hi
+    if passes == 3:
+        out = out + a_hi @ _tf32(b - b_hi) + _tf32(a - a_hi) @ b_hi
+    return out
+
+
+def _tiled_attention_tf32(q, k, v, passes: int):
+    """The "wgmma_f32" body's arithmetic on the CPU: K/V tiles of 32 keys,
+    each of Q·Kᵀ and P·V as ``passes`` TF32 products."""
+    def product(a, b):
+        return _tf32_product(a, b, passes)
+    return _tiled_attention(q, k, v, qk=product, pv=product, tile=32)
+
+
+def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
+    one = 1.0 + 2.0 ** -10                        # TF32's spacing at 1 is 2^-10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      1.0 + 3 * 2.0 ** -11, 3.0, -0.0])
+    want = torch.tensor([one, -one, 1.0, 1.0 + 2 * 2.0 ** -10, 3.0, -0.0])
+    assert torch.equal(_tf32(x).view(torch.int32), want.view(torch.int32))
+    r = torch.from_numpy(_normal(24, 4096))
+    assert ((_tf32(r).view(torch.int32) & 0x1FFF) == 0).all()
+    assert float(((_tf32(r) - r) / r).abs().max()) <= 2.0 ** -11
+    lo = _tf32(r - _tf32(r))                      # x_hi + x_lo carries x to ~2^-22
+    assert float(((_tf32(r) + lo - r) / r).abs().max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 256, 8, 2, 128),       # phi3-medium's heads: d = 128, GQA 4:1, 4 tiles of 64 keys
+    (2, 160, 4, 4, 16),        # the reduced dense model's heads (the reduced serve check)
+])
+def test_three_tf32_passes_hold_the_float32_card_gate_where_one_breaks_it(shape):
+    """The card check holds float32 B4 to its plain version within 1e-4
+    (``chip_smoke.py``'s ATTN gate, ``ATTN_RTOL["float32"] = 0``).  One
+    TF32 product keeps ~11 bits of each operand and moves the output by
+    several times that limit; three (x = x_hi + x_lo, the x_lo·y_lo term
+    dropped) stay far within it, causal, over several key tiles."""
+    b, s, h, kv, d = shape
+    q = torch.from_numpy(_normal(31, b, s, h, d))
+    k = torch.from_numpy(_normal(32, b, s, kv, d))
+    v = torch.from_numpy(_normal(33, b, s, kv, d))
+    ref = t_attention_ref(q, k, v, causal=True)
+
+    def worst(out):
+        return float((out - ref).abs().max()) / 1e-4
+
+    assert worst(_tiled_attention_tf32(q, k, v, passes=3)) <= 0.1
+    assert worst(_tiled_attention_tf32(q, k, v, passes=1)) > 2.0

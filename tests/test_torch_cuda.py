@@ -132,7 +132,7 @@ def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dt
     q = torch.randn(b, s, h, d, generator=g).to(card, dtype)
     k = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     v = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
-    body = "wgmma" if dtype == torch.bfloat16 and d in (16, 32, 48, 64, 80, 96, 112, 128) else "simt"
+    body = fa_kernel.select_body(dtype, d)
     before = flash_attention.launches, flash_attention.launches_by_body[body]
     out = flash_attention(q, k, v, causal=causal)
     assert (flash_attention.launches, flash_attention.launches_by_body[body]) == (before[0] + 1,
@@ -144,13 +144,16 @@ def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dt
 
 def test_flash_attention_entry_point_refuses_a_body_it_cannot_take(card):
     """The C side returns cudaErrorInvalidValue (1) for the wgmma body on
-    float32, on d = 40 or on d = 256, without launching."""
+    float32, on d = 40 or on d = 256, and for the wgmma_f32 body on
+    bfloat16 or on d = 256, without launching."""
     fn = bind("flash_attention", "flash_attention_fwd", fa_kernel._ARGTYPES)
     stream = torch.cuda.current_stream(card).cuda_stream
-    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 40), (torch.bfloat16, 256)):
+    for body, dtype, d in (("wgmma", torch.float32, 128), ("wgmma", torch.bfloat16, 40),
+                           ("wgmma", torch.bfloat16, 256), ("wgmma_f32", torch.bfloat16, 128),
+                           ("wgmma_f32", torch.float32, 256)):
         q = torch.zeros(1, 64, 2, d, dtype=dtype, device=card)
         out = torch.empty_like(q)
-        rc = fn(fa_kernel.BODIES["wgmma"], fa_kernel.DTYPES[dtype], q.data_ptr(), q.data_ptr(),
+        rc = fn(fa_kernel.BODIES[body], fa_kernel.DTYPES[dtype], q.data_ptr(), q.data_ptr(),
                 q.data_ptr(), out.data_ptr(), 1, 64, 64, 2, 2, d, *q.stride()[:3], *q.stride()[:3],
                 *q.stride()[:3], 1, 1.0 / math.sqrt(d), stream)
         assert rc == 1
