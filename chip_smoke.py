@@ -1,13 +1,14 @@
 """Chip smoke for repro_torch: build the CUDA kernels, check each against its
 plain PyTorch version on the card, drive the full-size scan search and the
 full-width multi-query search on the card and hold each against the same
-search on the CPU, then serve the full-width phi3-medium-14b LM (prefill
-through kernel B4, greedy decode through kernel B5) and the full-width
-mamba2-370m (prefill through kernel B6, the SSD chunk scan), hold each
-one's decode to teacher forcing, and each reduced LM on the card to the
-same on the CPU; last, prefill phi3-medium-14b in bfloat16 at full depth,
-whose attention runs on B4's bf16 tensor-core ("wgmma") body.  The float32
-prefill's attention runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
+search on the CPU, then serve the full-width phi3-medium-14b and gemma-7b
+LMs (prefill through kernel B4, greedy decode through kernel B5) and the
+full-width mamba2-370m (prefill through kernel B6, the SSD chunk scan),
+hold each one's decode to teacher forcing, and each reduced LM on the card
+to the same on the CPU; last, prefill phi3-medium-14b in bfloat16 at full
+depth, whose attention runs on B4's bf16 tensor-core ("wgmma") body.  The
+float32 prefills' attention, gemma's heads of 256 included, runs on B4's
+3xTF32 tensor-core body ("wgmma_f32").
 
     python3 chip_smoke.py
 
@@ -52,21 +53,27 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
 # the LM serving paths, at full width in the launcher's float32, 64 greedy
-# tokens each: phi3-medium-14b (dense) with 4 requests of a 2,048-token
-# prompt; mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each
-# (batch, head) carries its state across 8 chunks of 1,024.  ``prefill``
-# and ``decode`` name the kernel of each step (wrapper, a key that every
-# device kernel of it holds in its name, label), ``prefill_body`` the B4
-# body every prefill launch must take (full width and reduced), and
-# ``reduced_prompt`` the prompt of the reduced model's card-against-CPU
-# check.  "ssd_scan" is in the names of all five of B6's launches,
-# "flash_attention" in those of B4's three bodies.
+# tokens each: phi3-medium-14b (dense) and gemma-7b (dense, the launcher's
+# default arch, heads of 256) with 4 requests of a 2,048-token prompt;
+# mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each (batch,
+# head) carries its state across 8 chunks of 1,024.  ``prefill`` and
+# ``decode`` name the kernel of each step (wrapper, a key that every device
+# kernel of it holds in its name, label), ``prefill_body`` the B4 body every
+# prefill launch must take (full width and reduced), ``reduced_prompt`` the
+# prompt of the reduced model's card-against-CPU check and
+# ``reduced_head_dim`` its head width where it must stay the full model's
+# (``scale_down`` sets 64).  "ssd_scan" is in the names of all five of B6's
+# launches, "flash_attention" in those of B4's three bodies.
 SERVE_CELLS = {
     "dense": dict(arch="phi3-medium-14b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
-                  prefill=("flash_attention", "flash_attention", "B4"), prefill_body="wgmma_f32",
-                  decode=("flash_decode", "flash_decode_kernel", "B5")),
+                  reduced_head_dim=None, prefill=("flash_attention", "flash_attention", "B4"),
+                  prefill_body="wgmma_f32", decode=("flash_decode", "flash_decode_kernel", "B5")),
+    "gemma": dict(arch="gemma-7b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
+                  reduced_head_dim=256, prefill=("flash_attention", "flash_attention", "B4"),
+                  prefill_body="wgmma_f32", decode=("flash_decode", "flash_decode_kernel", "B5")),
     "ssm": dict(arch="mamba2-370m", batch=4, prompt=8192, tokens=64, reduced_prompt=64,
-                prefill=("ssd_scan", "ssd_scan", "B6"), prefill_body=None, decode=None),
+                reduced_head_dim=None, prefill=("ssd_scan", "ssd_scan", "B6"), prefill_body=None,
+                decode=None),
 }
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
@@ -74,16 +81,21 @@ SERVE_CELLS = {
 # above 2e-2
 ATTN_ATOL, ATTN_CAP = 1e-4, 2e-2
 ATTN_RTOL = {"float32": 0.0, "bfloat16": 8e-3}
-# (B, S, T, H, KV, d, dtype, causal); the first is the serve path's prefill,
-# the fourth the bf16 prefill's.  bfloat16 with d a multiple of 16 up to 128
-# runs on B4's "wgmma" body, float32 with d up to 128 on "wgmma_f32", the
-# rest (gemma's d = 256) on "simt" (kernel.select_body)
+# (B, S, T, H, KV, d, dtype, causal); B4_SERVE, B4_GEMMA and B4_BF16 are the
+# prefills' own (phi3 float32, gemma float32, phi3 bfloat16).  The body is
+# kernel.select_body's: bfloat16 with d a multiple of 16 up to 128 runs on
+# B4's "wgmma" body, float32 on "wgmma_f32", the rest on "simt"
+B4_SERVE = (4, 2048, 2048, 40, 10, 128, "float32", True)
+B4_GEMMA = (4, 2048, 2048, 16, 16, 256, "float32", True)
+B4_BF16 = (1, 8192, 8192, 40, 10, 128, "bfloat16", True)
 B4_SHAPES = (
-    (4, 2048, 2048, 40, 10, 128, "float32", True),
+    B4_SERVE,
     (1, 2048, 2048, 40, 10, 128, "float32", True),
     (1, 2048, 2048, 40, 10, 128, "bfloat16", True),
-    (1, 8192, 8192, 40, 10, 128, "bfloat16", True),
+    B4_BF16,
+    B4_GEMMA,
     (1, 2048, 2048, 16, 16, 256, "float32", True),       # gemma-7b's heads
+    (1, 2048, 2048, 16, 16, 256, "bfloat16", True),
     (1, 1000, 1000, 40, 10, 128, "float32", True),       # ragged
     (1, 1000, 1000, 40, 10, 128, "float32", False),
     (1, 256, 1024, 40, 10, 128, "float32", True),        # S != T: the top-left rule
@@ -96,13 +108,16 @@ B4_SHAPES = (
     (1, 2048, 2048, 32, 32, 96, "float32", True),        # phi3-vision's heads
 )
 # the dense prefill in bfloat16 (the reference's default param_dtype): one
-# prompt of 8,192 tokens, so each layer's attention is B4_SHAPES[3]; all
-# 40 layers (28.3 GB of bf16 weights)
+# prompt of 8,192 tokens, so each layer's attention is B4_BF16; all 40
+# layers (28.3 GB of bf16 weights)
 BF16_PREFILL = dict(arch="phi3-medium-14b", batch=1, prompt=8192, reduced_prompt=64)
-# (B, H, KV, d, T, dtype, cache_len per sequence); the first is the serve
-# path's last decode step (64 tokens in a cache of 2048 + 64 + 1)
+# (B, H, KV, d, T, dtype, cache_len per sequence); B5_SERVE and B5_GEMMA are
+# the serve paths' last decode steps (64 tokens in a cache of 2048 + 64 + 1)
+B5_SERVE = (4, 40, 10, 128, 2113, "float32", (64,) * 4)
+B5_GEMMA = (4, 16, 16, 256, 2113, "float32", (64,) * 4)
 B5_SHAPES = (
-    (4, 40, 10, 128, 2113, "float32", (64,) * 4),
+    B5_SERVE,
+    B5_GEMMA,
     (8, 40, 10, 128, 32768, "float32", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (4, 48, 1, 128, 8192, "float32", (0, 1, 8192, 3000)),     # granite-20b's MQA group
@@ -231,24 +246,45 @@ def sass_opcodes(lib: str) -> dict | None:
 # B4's tensor-core bodies: (label, a key its kernels hold in their names,
 # the type of its HGMMA instructions in SASS)
 B4_TC_BODIES = (("wgmma", "flash_attention_wgmma", "BF16"), ("wgmma_f32", "flash_attention_tf32", "TF32"))
+# "wgmma_f32" keeps a warpgroup's causal skip only up to d = 64, where the
+# products it skips outweigh ptxas' serializing every wgmma behind the branch
+B4_SERIALIZED_MAX_D = 64
 
 
 def check_b4_build(info: dict) -> None:
     """B4's tensor-core bodies as built: ptxas reports each without spills,
-    and the library's SASS holds HGMMA instructions of each one's type
-    (where cuobjdump is there to say)."""
+    "wgmma_f32" has its d = 256 instantiation (gemma's float32 prefill),
+    ptxas serializes the wgmmas of none but the "wgmma_f32" widths up to 64
+    (B4_SERIALIZED_MAX_D: the causal skip they keep), and the library's SASS
+    holds HGMMA instructions of each one's type (where cuobjdump is there
+    to say)."""
     ops = sass_opcodes(info["path"])
     entries = ptxas_entries(info["log"])
+    serialized = set()
+    for line in info["log"].splitlines():
+        m = re.search(r"wgmma\.mma_async instructions are serialized.*function '([^']+)'", line)
+        if m:
+            width = re.search(r"ILi(\d+)E", m.group(1))
+            label = "wgmma_f32" if "flash_attention_tf32" in m.group(1) else m.group(1)
+            serialized.add((label, int(width.group(1)) if width else None))
+    allowed = {("wgmma_f32", d) for d in range(8, B4_SERIALIZED_MAX_D + 1, 8)}
+    print(f"  B4: ptxas serializes the wgmmas of {sorted(serialized, key=str)}")
+    if serialized - allowed:
+        fail(f"ptxas serializes B4's wgmmas in {sorted(serialized - allowed, key=str)}")
     for label, key, kind in B4_TC_BODIES:
         bodies = [e for e in entries if key in e["name"]]
         if not bodies:
             fail(f"ptxas reported no kernel of B4's {label} body")
+        widths = set()
         for e in bodies:
             width = re.search(r"ILi(\d+)E", e["name"])
+            widths.add(int(width.group(1)) if width else None)
             print(f"  B4 {label} body, d = {width.group(1) if width else '?'}: {e['registers']} registers, "
                   f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
             if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
                 fail(f"B4's {label} body spills or went unreported: {e}")
+        if label == "wgmma_f32" and 256 not in widths:
+            fail(f"ptxas reported no d = 256 instantiation of B4's {label} body (widths {sorted(widths)})")
         if ops is None:
             print(f"  B4 library: {kind} HGMMA not checked (no cuobjdump)")
             continue
@@ -497,9 +533,9 @@ def check_attention_kernels(torch, rows) -> None:
     1e-4; bfloat16 within about one bf16 ulp, see ATTN_RTOL), each B4 row on
     the body ``select_body`` names, timed beside SDPA, the PyTorch call that
     computes the same function (never used by the port).  SDPA's GQA keeps
-    its memory-efficient backend away from float32, so a float32 row also
-    times SDPA on K/V repeated to H heads outside the timed call, and its
-    library time is the faster of the two.  A "wgmma_f32" row's bound is
+    its memory-efficient backend away from float32, so a float32 B4 row and
+    every B5 row also time SDPA on K/V repeated to H heads outside the
+    timed call, and the library time is the faster of the two.  A "wgmma_f32" row's bound is
     its 3xTF32 products at the TF32 rate (or its bytes), printed beside the
     float32-FMA bound."""
     import torch.nn.functional as F
@@ -599,7 +635,13 @@ def check_attention_kernels(torch, rows) -> None:
         def library():
             return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
 
+        kr, vr = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+
+        def repeated():
+            return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask)
+
         backend, names = sdpa_backend(library)
+        rep_backend, _ = sdpa_backend(repeated)
         live = sum(t if n <= 0 else min(n, t) for n in lens)
         es = q.element_size()
         row = timed_row(lambda: flash_decode(q, kc, vc, cache_len),
@@ -609,12 +651,17 @@ def check_attention_kernels(torch, rows) -> None:
                         shape=[b, h, kv, d, t], dtype=dtype, cache_len=list(lens),
                         bytes=2 * q.numel() * es + 2 * live * kv * d * es, ops=4 * d * h * live,
                         max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend)
+        rep_ms = device_ms(repeated, n=20) or median_ms(repeated, inner=10, reps=5)
+        row.update(library_gqa_ms=row["library_ms"], sdpa_repeat_backend=rep_backend,
+                   library_repeat_ms=rep_ms, library_ms=min(row["library_ms"], rep_ms))
         rows[("flash_decode", b, h, kv, d, t, dtype)] = row
         print(f"  flash_decode (B,H,KV,d,T)=({b},{h},{kv},{d},{t}) {dtype} cache_len {list(lens)}: "
               f"max |diff| {err:.3g} (mean |ref| {mag:.3g}, largest |diff| / limit {worst:.3g}); "
               + describe(row)
-              + f"; SDPA backend {backend} ({', '.join(n[:60] for n in names[:3])})")
-        del q, kc, vc, q4, kt, vt
+              + f"; SDPA (GQA) {backend} {row['library_gqa_ms'] * 1e3:.2f} us "
+              f"({', '.join(n[:60] for n in names[:3])}), on K/V repeated to H heads {rep_backend} "
+              f"{rep_ms * 1e3:.2f} us")
+        del q, kc, vc, q4, kt, vt, kr, vr
         torch.cuda.empty_cache()
 
 
@@ -1211,6 +1258,8 @@ def reduced_serve(torch, family: str) -> None:
     """The reduced LM of ``SERVE_CELLS[family]`` served on the card equals
     the same on the CPU: the same tokens, logits and decode caches within
     1e-4 (weights made on the CPU and copied)."""
+    import dataclasses
+
     from repro_torch import convert
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
@@ -1220,6 +1269,8 @@ def reduced_serve(torch, family: str) -> None:
     arch = cell["arch"]
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     cfg = launcher.model_config(arch, reduced=True, device=cuda)
+    if cell["reduced_head_dim"] is not None:
+        cfg = dataclasses.replace(cfg, head_dim=cell["reduced_head_dim"])
     p_cpu = init_params(cfg, seed=0, device=cpu)
     p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
     prompt = launcher.make_prompt(cfg, 2, cell["reduced_prompt"], cpu)
@@ -1238,7 +1289,8 @@ def reduced_serve(torch, family: str) -> None:
         fail(f"reduced serve {arch}: card != CPU (tokens equal: "
              f"{torch.equal(gpu.tokens.cpu(), ref.tokens)}, max |diff| {worst})")
     fields = sorted({f for layer in gpu.cache.layers for f in layer._fields})
-    print(f"  reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, prompt "
+    print(f"  reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
+          f"{cfg.resolved_head_dim}, prompt "
           f"{cell['reduced_prompt']}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
           f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)"
           + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
@@ -1247,7 +1299,7 @@ def reduced_serve(torch, family: str) -> None:
 def bf16_prefill_path(torch) -> tuple[dict, dict]:
     """The dense prefill in bfloat16 through the launcher's prefill step:
     ``BF16_PREFILL``'s arch at full width and depth, one long prompt,
-    so that each layer's attention is B4's "wgmma" body at B4_SHAPES[3].
+    so that each layer's attention is B4's "wgmma" body at B4_BF16.
     Checks the logits (shape, finite) and that each layer launched that
     body once and nothing else ran; profiles the prefill.  Returns the
     body's launches (as "flash_attention_wgmma") and the metrics."""
@@ -1416,41 +1468,47 @@ def main() -> int:
 
     summary = []
     b4_src, b4_tpu = "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:91"
+    b5_src, b5_tpu = "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode/kernel.py:71"
     for kname, key, src, replaces, launches in (
         ("thompson_choose", ("thompson_choose", 50, 1000), "src/repro_torch/csrc/thompson_choose.cu",
-         "src/repro/kernels/thompson/kernel.py:73", scan_launches),
+         "src/repro/kernels/thompson/kernel.py:73", scan_launches["thompson_choose"]),
         ("thompson_choose_batched", ("thompson_choose_batched", 8, 50, 1000),
          "src/repro_torch/csrc/thompson_choose.cu", "src/repro/kernels/thompson/kernel.py:114",
-         multi_launches),
+         multi_launches["thompson_choose_batched"]),
         ("iou_matrix", ("iou_matrix", 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
-         "src/repro/kernels/iou_match/kernel.py:37", scan_launches),
+         "src/repro/kernels/iou_match/kernel.py:37", scan_launches["iou_matrix"]),
         ("iou_matrix_batched", ("iou_matrix_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
-         "src/repro/kernels/iou_match/kernel.py:37", multi_launches),
-        ("flash_attention", ("flash_attention", *B4_SHAPES[0]), b4_src, b4_tpu, serve_launches["dense"]),
-        ("flash_attention_wgmma", ("flash_attention", *B4_SHAPES[3]), b4_src, b4_tpu, bf16_launches),
-        ("flash_decode", ("flash_decode", *B5_SHAPES[0][:6]), "src/repro_torch/csrc/flash_decode.cu",
-         "src/repro/kernels/flash_decode/kernel.py:71", serve_launches["dense"]),
+         "src/repro/kernels/iou_match/kernel.py:37", multi_launches["iou_matrix_batched"]),
+        ("flash_attention", ("flash_attention", *B4_SERVE), b4_src, b4_tpu,
+         serve_launches["dense"]["flash_attention"]),
+        ("flash_attention_d256", ("flash_attention", *B4_GEMMA), b4_src, b4_tpu,
+         serve_launches["gemma"]["flash_attention"]),
+        ("flash_attention_wgmma", ("flash_attention", *B4_BF16), b4_src, b4_tpu,
+         bf16_launches["flash_attention_wgmma"]),
+        ("flash_decode", ("flash_decode", *B5_SERVE[:6]), b5_src, b5_tpu,
+         serve_launches["dense"]["flash_decode"]),
+        ("flash_decode_d256", ("flash_decode", *B5_GEMMA[:6]), b5_src, b5_tpu,
+         serve_launches["gemma"]["flash_decode"]),
         ("ssd_scan", ("ssd_scan", *B6_SHAPES[0]),
          "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
-         serve_launches["ssm"]),
+         serve_launches["ssm"]["ssd_scan"]),
     ):
         row = rows[key]
         summary.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=launches[kname], max_abs_err=row["max_abs_err"],
+            launches=launches, max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
-        if "body" in row:
-            summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms",
-                                                     "library_gqa_ms", "library_repeat_ms",
-                                                     "sdpa_backend", "sdpa_repeat_backend") if k in row})
-    print(json.dumps({"serve": serve_metrics["dense"], "serve_ssm": serve_metrics["ssm"],
-                      "prefill_bf16": bf16_metrics}))
+        summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms",
+                                                 "library_gqa_ms", "library_repeat_ms",
+                                                 "sdpa_backend", "sdpa_repeat_backend") if k in row})
+    print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
+                      "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
-                                   "serve": serve_launches["dense"], "serve_ssm": serve_launches["ssm"],
-                                   "prefill_bf16": bf16_launches}}))
+                                   "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
+                                   "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

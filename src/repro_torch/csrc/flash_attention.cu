@@ -17,9 +17,9 @@
 // the shape.  All keep the TPU kernel's arithmetic: P is float32 there
 // (kernel.py:54, 74-75), so none rounds it to bfloat16 or TF32 alone.
 //
-// "simt" (body 0): float32 with d above 128 (gemma's 256), and bfloat16 with d
-// not a multiple of 16 or above 128.  One block of 128 threads per (query tile
-// of BQ rows, batch*head).  q, k and v are read in their [B, S, H, d] / [B, T,
+// "simt" (body 0): bfloat16 with d not a multiple of 16 or above 128 (gemma's
+// 256); float32 only when the caller names it.  One block of 128 threads per
+// (query tile of BQ rows, batch*head).  q, k and v are read in their [B, S, H, d] / [B, T,
 // KV, d] layouts through their strides, so nothing is transposed or repeated
 // in device memory.  The block stages its Q tile once, then walks the K/V
 // tiles in order: each is staged in shared memory (converted to float32), the
@@ -76,7 +76,7 @@
 // overlap of a product with the softmax next to it (the block waits for
 // each product before the softmax that reads it).
 //
-// "wgmma_f32" (body 2): float32 with d a multiple of 8 up to 128, on the
+// "wgmma_f32" (body 2): float32 with d a multiple of 8 up to 256, on the
 // tensor cores as 3xTF32: a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi with
 // x_hi = tf32(x), x_lo = tf32(x - x_hi), both by cvt.rna (to nearest, ties
 // away from zero), the products summed in the float32 accumulators.  Three
@@ -99,8 +99,10 @@
 //     keys does not care about their order.
 //   One block of two warpgroups (256 threads) per (128 query rows,
 //     batch*head), each warpgroup owning 64 rows; K/V tiles of 32 keys,
-//     shared by both (a warpgroup skips the products of a causal tile wholly
-//     above its rows, but still copies, splits and meets every barrier).
+//     shared by both (at d <= 64 a warpgroup skips the products of a causal
+//     tile wholly above its rows, but still copies, splits and meets every
+//     barrier; ptxas serializes every wgmma behind that branch, which costs
+//     more than the skipped products from d = 96 on).
 //   Copies go raw into the lo buffers by cp.async (Q and K 16 bytes a
 //     thread; V 4 bytes a thread, transposed on the way, a warp's 32 values
 //     on 32 banks) and are split in place, lo -> (hi, lo).
@@ -117,6 +119,25 @@
 // Bound on the H100 at (4, 2048, 2048, 40, 10, 128) causal: 1.72e11
 // float32 operations (2.57 ms at 67 TFLOP/s of float32 FMAs), issued as
 // 5.16e11 TF32 operations, 1.04 ms at 495 TFLOP/s; its bytes take 0.13 ms.
+//   Above d = 128 (gemma's 256) that block does not fit: Q's halves for 128
+//   rows alone take 256 KB, and O's 64 x 256 float32 accumulator takes 128
+//   registers a thread.  So one instantiation (flash_attention_tf32_wide,
+//   D = 256) serves every width 136 .. 256, the columns past d zero in
+//   shared memory, O as one m64n256k8 accumulator, with:
+//   - Q kept raw in shared memory (128 KB), never split there: at each of
+//     Q.K^T's 32 k-steps a warp loads its A fragment with one ldmatrix (a
+//     k-step ahead), splits it into hi and lo in registers and issues the
+//     three products with A from registers, two k-steps' products in flight;
+//   - K tiles of 32 keys (hi and lo, 64 KB), so that Q.K^T runs at N = 32:
+//     with tiles of 16 its 96 products a tile, of N = 16, took ~43 cycles
+//     each (8 at the TF32 peak) and bounded the body (bring-up probes);
+//   - V^T tiles of 16 keys (hi and lo, 32 KB), two a K tile through one slot:
+//     224 KB in all.  The second half's copy waits for the first half's
+//     products; K(kt+1) is split meanwhile.
+//   There the causal skip is off: each warpgroup runs every tile of the
+//   block, so no wgmma sits in a branch ptxas cannot prove uniform.
+//   Bound at (4, 2048, 2048, 16, 16, 256) causal: 1.37e11 float32
+//   operations, issued as 4.12e11 TF32 ones, 0.83 ms at 495 TFLOP/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -542,10 +563,11 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], u
 // chunks of 16 bytes a row (LDC >= DC): the chunk at (row r, chunk c)
 // lands at ((r/8)*LDC + c)*128 + (r%8)*16, one cp.async.cg each, the 8 rows
 // of a core matrix on neighbouring threads so that a warp writes 512
-// contiguous bytes.  Rows at or past n_valid are zero-filled.
+// contiguous bytes.  Rows at or past n_valid, and chunks at or past c_valid
+// (a row narrower than DC chunks), are zero-filled.
 template <int ROWS, int DC, int LDC, typename T>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src, long long row_stride,
-                                          int r0, int n_valid) {
+                                          int r0, int n_valid, int c_valid = DC) {
   constexpr int kChunks = ROWS * DC;
 #pragma unroll
   for (int n = 0; n < (kChunks + kWgThreads - 1) / kWgThreads; ++n) {
@@ -554,7 +576,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src, long
     const int r8 = i % 8, c = (i / 8) % DC, g = i / (8 * DC);
     const int r = g * 8 + r8;
     unsigned char* p = dst + (g * LDC + c) * 128 + r8 * 16;
-    if (r0 + r < n_valid)
+    if (r0 + r < n_valid && c < c_valid)
       cp_async16(p, src + static_cast<long long>(r0 + r) * row_stride + c * (16 / sizeof(T)));
     else
       *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
@@ -740,7 +762,9 @@ using wg::wgmma_commit;
 using wg::wgmma_fence;
 using wg::wgmma_wait_all;
 
-constexpr int kKeys = 32;                 // keys of a K/V tile
+constexpr int kKeys = 32;                 // keys of a K/V tile up to d = 128, of a K tile above
+constexpr int kHalf = 16;                 // keys of a V^T tile above d = 128
+constexpr int kWideD = 256;               // the one instantiation above d = 128
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -774,25 +798,46 @@ __device__ __forceinline__ float tf32(float x) {
   TF_ACC48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),          \
       "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),   \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TF_ACC128                                                                                  \
+  TF_ACC64, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),          \
+      "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),   \
+      "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),   \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),   \
+      "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),   \
+      "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),            \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),          \
+      "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),          \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),          \
+      "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 #define TF_REGS16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define TF_REGS32 TF_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define TF_REGS48 TF_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
 #define TF_REGS64 TF_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define TF_REGS128 \
+  TF_REGS64 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79" \
+  ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+  ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111" \
+  ", %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
-// O += P.V, wgmma m64n{N}k8 with NACC = N/2 accumulators a thread: A (4 tf32
-// a thread) from registers, B (V^T, K-major) from shared memory
+// D (+)= A.B, wgmma m64n{N}k8 with NACC = N/2 accumulators a thread: A (4
+// tf32 a thread) from registers, B (K-major) from shared memory; the first
+// product of a sum passes accumulate = 0 and overwrites d.  O += P.V^T at
+// N = DN, and above d = 128 also S = Q.K^T at N = 32 (Q from registers).
 #define TF_MMA_RS(NACC, N, REGS, ACC, A0, A1, A2, A3, B, P)                                      \
-  __device__ __forceinline__ void mma_rs(float (&d)[NACC], const uint32_t (&a)[4], uint64_t b) {   \
+  __device__ __forceinline__ void mma_rs(float (&d)[NACC], const uint32_t (&a)[4], uint64_t b,    \
+                                         int accumulate = 1) {                                    \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                                  \
                  "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, "           \
                  "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1;\n}\n"                \
                  : ACC                                                                             \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                    \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
   }
 TF_MMA_RS(16, 32, TF_REGS16, TF_ACC16, 16, 17, 18, 19, 20, 21)
 TF_MMA_RS(32, 64, TF_REGS32, TF_ACC32, 32, 33, 34, 35, 36, 37)
 TF_MMA_RS(48, 96, TF_REGS48, TF_ACC48, 48, 49, 50, 51, 52, 53)
 TF_MMA_RS(64, 128, TF_REGS64, TF_ACC64, 64, 65, 66, 67, 68, 69)
+TF_MMA_RS(128, 256, TF_REGS128, TF_ACC128, 128, 129, 130, 131, 132, 133)
 #undef TF_MMA_RS
 
 // S (+)= Q.K^T, wgmma m64n32k8, A and B from shared memory, both K-major
@@ -804,28 +849,45 @@ __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, i
                : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// Keys k0 .. k0+kKeys-1 of a [keys, D] float32 view as V^T: row n (a
+// Waits until at most N committed groups of this warpgroup's wgmmas are
+// still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp's four 8 x 4 float32 matrices at the four row addresses its
+// lanes give (lanes 8i .. 8i+7 the rows of matrix i): lane l receives row
+// l/4, column l%4 of each, in r[i].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Keys k0 .. k0+KEYS-1 of a [keys, D] float32 view as V^T: row n (a
 // head-dim column) holds the tile's keys contiguous, so that P.V reads V
 // K-major.  Within each 8-key slice the keys are permuted: key j sits at
 // position (j%2)*4 + j/2, because the S accumulator gives a thread keys
 // (2t, 2t+1) of the slice and P's A fragment wants positions (t, t+4) (see
 // the note).  One 4-byte cp.async a value; a warp copies 8 columns x 4 keys
 // of one parity, which land on 32 distinct banks.  Keys at or past n_valid
-// are 0.
-template <int D>
+// and columns at or past d_valid are 0.
+template <int D, int KEYS>
 __device__ __forceinline__ void load_vt(unsigned char* dst, const float* src, long long row_stride,
-                                        int k0, int n_valid) {
-  constexpr int kQuads = kKeys / 4;                // (8 columns) x (4 keys of a slice and parity)
+                                        int k0, int n_valid, int d_valid) {
+  constexpr int kQuads = KEYS / 4;                 // (8 columns) x (4 keys of a slice and parity)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nl = lane % 8, m = lane / 8;
 #pragma unroll 4
   for (int item = warp; item < (D / 8) * kQuads; item += kWgThreads / 32) {
     const int g8 = item / kQuads, quad = item % kQuads;
     const int slice = quad / 2, parity = quad % 2;
-    const int key = k0 + 8 * slice + 2 * m + parity;
+    const int key = k0 + 8 * slice + 2 * m + parity, col = g8 * 8 + nl;
     unsigned char* p = dst + ((g8 * kQuads + 2 * slice + parity) * 128 + nl * 16 + m * 4);
-    if (key < n_valid)
-      cp_async4(p, src + static_cast<long long>(key) * row_stride + g8 * 8 + nl);
+    if (key < n_valid && col < d_valid)
+      cp_async4(p, src + static_cast<long long>(key) * row_stride + col);
     else
       *reinterpret_cast<float*>(p) = 0.f;
   }
@@ -833,9 +895,9 @@ __device__ __forceinline__ void load_vt(unsigned char* dst, const float* src, lo
 
 // In place: each raw float32 x in lo becomes tf32(x) in hi and
 // tf32(x - tf32(x)) in lo, at the same offset (BYTES of each).
-template <int BYTES>
+template <int BYTES, int UNROLL = 4>
 __device__ __forceinline__ void split(unsigned char* hi, unsigned char* lo) {
-#pragma unroll 4
+#pragma unroll (UNROLL)
   for (int i = threadIdx.x * 16; i < BYTES; i += kWgThreads * 16) {
     const float4 x = *reinterpret_cast<const float4*>(lo + i);
     const float4 h = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
@@ -856,6 +918,7 @@ flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int C = D / 4;                          // 16-byte chunks of a Q/K row
   constexpr int kQBytes = kRows * D * 4, kKBytes = kKeys * D * 4, kVBytes = DN * kKeys * 4;
   constexpr int kVRowBytes = D * kKeys * 4;         // V^T's rows 0..D-1; D..DN-1 stay zero
+  constexpr bool kSkip = D <= 64;                   // see the causal skip below
   extern __shared__ __align__(128) unsigned char tiles[];
   unsigned char* sQh = tiles;
   unsigned char* sQl = sQh + kQBytes;
@@ -885,7 +948,7 @@ flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
   load_tile<kRows, C, C>(sQl, qb, q_ss, q0, S);
   load_tile<kKeys, C, C>(sKl, kb, k_st, 0, Tk);
   cp_async_commit();
-  load_vt<D>(sVl, vb, v_st, 0, Tk);
+  load_vt<D, kKeys>(sVl, vb, v_st, 0, Tk, D);
   cp_async_commit();
   cp_async_wait<1>();                              // Q and K(0), not V(0)
   __syncthreads();
@@ -919,8 +982,12 @@ flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = kt * kKeys;
     const bool more = kt + 1 < n_tiles;
     // a causal tile wholly above this warpgroup's rows adds nothing to them;
-    // the warpgroup still copies, splits and meets every barrier
-    const bool live = !(causal && k0 > gq0 + 63);
+    // the warpgroup still copies, splits and meets every barrier.  Only at
+    // d <= 64 does it skip that tile's products: the skip is a branch ptxas
+    // cannot prove uniform across the warpgroup, so it serializes every
+    // wgmma of the kernel, which costs more than the skipped products from
+    // d = 96 on and less at 64 (bring-up probes)
+    const bool live = !(kSkip && causal && k0 > gq0 + 63);
     if (live) {                                    // S = Q_hi.K_hi + Q_hi.K_lo + Q_lo.K_hi
       fence_regs(s);
       wgmma_fence();
@@ -991,7 +1058,7 @@ flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();                               // every P.V(kt) product done: V's slot is free
     if (more) {
-      load_vt<D>(sVl, vb, v_st, k0 + kKeys, Tk);
+      load_vt<D, kKeys>(sVl, vb, v_st, k0 + kKeys, Tk, D);
       cp_async_commit();
     }
   }
@@ -1008,6 +1075,180 @@ flash_attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j + t2) =
           make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+  }
+}
+
+// "wgmma_f32" above d = 128 (see the note): Q raw, K tiles of 32 keys, V^T
+// tiles of 16, no causal skip.  Its in-place splits run two float4s at a
+// time: at four, beside O's 128 accumulators, ptxas spilled.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_tf32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out, int S, int Tk,
+                          int H, int KV, int d, long long q_sb, long long q_ss, long long q_sh,
+                          long long k_sb, long long k_st, long long k_sh, long long v_sb,
+                          long long v_st, long long v_sh, int causal, float scale_log2) {
+  constexpr int C = D / 4;                          // 16-byte chunks of a Q/K row
+  constexpr int kQBytes = kRows * D * 4, kKBytes = kKeys * D * 4, kVBytes = D * kHalf * 4;
+  extern __shared__ __align__(128) unsigned char tiles[];
+  unsigned char* sQ = tiles;
+  unsigned char* sKh = sQ + kQBytes;
+  unsigned char* sKl = sKh + kKBytes;
+  unsigned char* sVh = sKl + kKBytes;
+  unsigned char* sVl = sVh + kVBytes;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = warp / 4;                      // this thread's warpgroup: rows 64*group ..
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest causal tiles first
+  const int gq0 = q0 + 64 * group;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KV);
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
+
+  int n_tiles = (Tk + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kKeys + 1);
+  load_tile<kRows, C, C>(sQ, qb, q_ss, q0, S, d / 4);
+  load_tile<kKeys, C, C>(sKl, kb, k_st, 0, Tk, d / 4);
+  cp_async_commit();
+  load_vt<D, kHalf>(sVl, vb, v_st, 0, Tk, d);
+  cp_async_commit();
+  cp_async_wait<1>();                              // Q and K(0), not V(0)
+  __syncthreads();
+  split<kKBytes, 2>(sKh, sKl);
+  fence_proxy_async();
+  __syncthreads();
+
+  // K: chunks c and c+1 (K) 128 B apart, 8-key groups C*128 B apart; a
+  // k-step is 256 B further (+16 in the descriptor).  V^T: chunks of 4 keys
+  // 128 B apart, 8-column groups (kHalf/4)*128 B apart.  Q's A fragment for
+  // ldmatrix: matrix i = lane/8 is the core matrix of row group i%2 of the
+  // warp's 16 rows and chunk i/2 of the k-step, so that register i holds
+  // (row g + 8*(i%2), column t + 4*(i/2)), wgmma's tf32 A fragment.
+  constexpr uint32_t kLbo = 128, kKSbo = C * 128, kVSbo = (kHalf / 4) * 128;
+  const uint64_t dkh = make_desc(smem_addr(sKh), kLbo, kKSbo), dkl = make_desc(smem_addr(sKl), kLbo, kKSbo);
+  const uint64_t dvh = make_desc(smem_addr(sVh), kLbo, kVSbo), dvl = make_desc(smem_addr(sVl), kLbo, kVSbo);
+  const uint32_t q_frag =
+      smem_addr(sQ) + ((group * 8 + 2 * (warp % 4) + (lane / 8) % 2) * C + lane / 16) * 128 + (lane % 8) * 16;
+
+  float o[D / 2], s[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int row0 = gq0 + (warp % 4) * 16 + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int t2 = 2 * (lane % 4);                   // and columns 8j + t2, 8j + t2 + 1
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kKeys;
+    const bool more = kt + 1 < n_tiles;
+    // S = Q_hi.K_hi + Q_hi.K_lo + Q_lo.K_hi
+    fence_regs(s);
+    uint32_t raw[4];
+    ldmatrix_x4(raw, q_frag);
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {            // the first overwrites s
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = __uint_as_float(raw[r]), xh = tf32(x);
+        hi[r] = __float_as_uint(xh);
+        lo[r] = __float_as_uint(tf32(x - xh));
+      }
+      if (ks + 1 < D / 8) ldmatrix_x4(raw, q_frag + 256 * (ks + 1));
+      wgmma_fence();
+      mma_rs(s, hi, dkh + 16 * ks, ks > 0);
+      mma_rs(s, hi, dkl + 16 * ks);
+      mma_rs(s, lo, dkh + 16 * ks);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    // while the last ones run: V(kt)'s first half, landed, split in place
+    cp_async_wait<0>();
+    __syncthreads();
+    split<kVBytes, 2>(sVh, sVl);
+    fence_proxy_async();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncthreads();                               // every S(kt) product done: K's slot is free
+    if (more) {
+      load_tile<kKeys, C, C>(sKl, kb, k_st, k0 + kKeys, Tk, d / 4);
+      cp_async_commit();
+    }
+
+    softmax_tile(s, o, m, l, k0, Tk, row0, t2, gq0, causal, scale_log2);
+    // O += P_hi.V_hi + P_hi.V_lo + P_lo.V_hi, keys k0 .. k0 + 15 and then
+    // k0 + 16 .. k0 + 31, each half through V^T's slot, P split a half at a
+    // time (the second half's p waits in s)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // A fragment of k-slice j: positions t and t + 4 hold keys 2t and
+      // 2t + 1 (V^T's permutation): this thread's s[4j], s[4j + 2], s[4j + 1],
+      // s[4j + 3]
+      uint32_t p_hi[kHalf / 8][4], p_lo[kHalf / 8][4];
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int js = 2 * half + j;
+        const float a[4] = {s[4 * js], s[4 * js + 2], s[4 * js + 1], s[4 * js + 3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float hi = tf32(a[r]);
+          p_hi[j][r] = __float_as_uint(hi);
+          p_lo[j][r] = __float_as_uint(tf32(a[r] - hi));
+        }
+      }
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        mma_rs(o, p_hi[j], dvh + 16 * j);
+        mma_rs(o, p_hi[j], dvl + 16 * j);
+        mma_rs(o, p_lo[j], dvh + 16 * j);
+      }
+      wgmma_commit();
+      if (half == 0 && more) {                     // while they run: K(kt+1), landed, split
+        cp_async_wait<0>();
+        __syncthreads();
+        split<kKBytes, 2>(sKh, sKl);
+        fence_proxy_async();
+      }
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      __syncthreads();                             // every P.V product of this half done: V's slot is free
+      if (half == 0) {                             // V(kt)'s second half, into the slot and split
+        load_vt<D, kHalf>(sVl, vb, v_st, k0 + kHalf, Tk, d);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        split<kVBytes, 2>(sVh, sVl);
+        fence_proxy_async();
+        __syncthreads();
+      } else if (more) {
+        load_vt<D, kHalf>(sVl, vb, v_st, k0 + kKeys, Tk, d);
+        cp_async_commit();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<float2*>(orow + 8 * j + t2) =
+            make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
   }
 }
 
@@ -1028,10 +1269,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
-// d a multiple of 8 up to 128, one instantiation each
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                        int H, int KV, int d, const long long* st, int causal, float scale,
+                        cudaStream_t stream) {
+  constexpr int D = kWideD;
+  auto kernel = flash_attention_tf32_wide<D>;
+  constexpr size_t smem = static_cast<size_t>(kRows * D + 2 * kKeys * D + 2 * D * kHalf) * 4;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, Tk, H, KV, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], causal, scale * wg::kLog2e);
+  return cudaGetLastError();
+}
+
+// d a multiple of 8: one instantiation each up to 128, the wide one above
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
                        int H, int KV, int d, const long long* st, int causal, float scale,
                        cudaStream_t stream) {
+  if (d > 128) return launch_wide(q, k, v, out, B, S, Tk, H, KV, d, st, causal, scale, stream);
 #define TF_CASE(D) \
   case D: return launch<D>(q, k, v, out, B, S, Tk, H, KV, st, causal, scale, stream);
   switch (d) {
@@ -1047,7 +1306,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 }  // namespace
 
 // body: 0 "simt", 1 "wgmma" (bfloat16, d a multiple of 16 up to 128),
-// 2 "wgmma_f32" (float32, d a multiple of 8 up to 128).
+// 2 "wgmma_f32" (float32, d a multiple of 8 up to 256).
 // dtype: 0 float32, 1 bfloat16.  q [B,S,H,d], k/v [B,T,KV,d] with unit last
 // stride; strides in elements: q (batch, seq, head), k (batch, seq, head),
 // v (batch, seq, head).  out is a contiguous [B,S,H,d] of the same type.
@@ -1064,7 +1323,7 @@ extern "C" int flash_attention_fwd(int body, int dtype, const void* q, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   if (body == 1 && (dtype != 1 || d % 16 != 0 || d > 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (body == 2 && (dtype != 0 || d > 128))
+  if (body == 2 && dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

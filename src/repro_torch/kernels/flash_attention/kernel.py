@@ -6,9 +6,9 @@ The source has three bodies, and ``select_body`` picks one from the
 dtype and the head dim before the launch: "wgmma" (the tensor cores, bf16
 products) for bfloat16 with d a multiple of 16 up to 128, "wgmma_f32"
 (the tensor cores, three TF32 products for each float32 one) for float32
-with d up to 128, "simt" (float32 FMAs on the CUDA cores) for the rest:
-gemma's d = 256, and bfloat16 at other widths.  This is a dispatch by type
-and width, not a fallback: a launch that fails raises."""
+at every width, gemma's 256 included, "simt" (float32 FMAs on the CUDA
+cores) for bfloat16 at the other widths, gemma's among them.  This is a
+dispatch by type and width, not a fallback: a launch that fails raises."""
 from __future__ import annotations
 
 import ctypes
@@ -30,7 +30,7 @@ def select_body(dtype: torch.dtype, d: int) -> str:
     """B4's body for inputs of ``dtype`` and head dim ``d`` (a multiple of 8)."""
     if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128:
         return "wgmma"
-    if dtype == torch.float32 and d % 8 == 0 and d <= 128:
+    if dtype == torch.float32 and d % 8 == 0 and d <= 256:
         return "wgmma_f32"
     return "simt"
 

@@ -20,7 +20,7 @@ The CUDA kernels themselves run only on the card: ``chip_smoke.py`` and
 held here: which body a (dtype, d) takes and the numerical
 designs of the tensor-core bodies, emulated in float32 against the card
 check's gates: "wgmma" carries P as two bfloat16 halves, "wgmma_f32" forms
-each float32 product as three TF32 ones.
+each float32 product as three TF32 ones, over tiles of 32 keys.
 """
 import math
 
@@ -206,20 +206,23 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
     (torch.float32, 16, "wgmma_f32"),   # the reduced dense model
     (torch.float32, 40, "wgmma_f32"),   # a multiple of 8 is enough: k-steps of 8
     (torch.float32, 8, "wgmma_f32"),
-    (torch.float32, 136, "simt"),
-    (torch.float32, 256, "simt"),       # gemma-7b
+    (torch.float32, 136, "wgmma_f32"),  # above 128: one instantiation, D = 256, d at run time
+    (torch.float32, 256, "wgmma_f32"),  # gemma-7b, the launcher's default arch
 ])
 def test_body_selection_table(dtype, d, body):
     assert t_fa_kernel.select_body(dtype, d) == body
 
 
 def test_every_registered_head_width_takes_the_tensor_cores_in_bfloat16_but_gemma():
+    """In bfloat16 gemma-7b's d = 256 stays on "simt"; in float32 (the
+    launcher's dtype) every registered width, gemma's included, takes the
+    tensor cores."""
     widths = {name: cfg.resolved_head_dim for name, cfg in ARCHS.items() if cfg.num_heads}
     simt = {name for name, d in widths.items() if t_fa_kernel.select_body(torch.bfloat16, d) == "simt"}
     assert simt == {"gemma-7b"}
     f32 = {name: t_fa_kernel.select_body(torch.float32, d) for name, d in widths.items()}
-    assert {name for name, body in f32.items() if body != "wgmma_f32"} == {"gemma-7b"}
-    assert f32["gemma-7b"] == "simt"
+    assert set(f32.values()) == {"wgmma_f32"}
+    assert f32["gemma-7b"] == "wgmma_f32" and widths["gemma-7b"] == 256
 
 
 def _tiled_attention(q, k, v, *, pv, qk=torch.matmul, tile: int = 64):
@@ -302,12 +305,14 @@ def _tf32_product(a, b, passes: int):
     return out
 
 
-def _tiled_attention_tf32(q, k, v, passes: int):
-    """The "wgmma_f32" body's arithmetic on the CPU: K/V tiles of 32 keys,
-    each of Q·Kᵀ and P·V as ``passes`` TF32 products."""
+def _tiled_attention_tf32(q, k, v, passes: int, tile: int = 32):
+    """The "wgmma_f32" body's arithmetic on the CPU: K/V tiles of ``tile``
+    keys (the body's 32 at every width: above d = 128 its V tiles are
+    halves of that, which changes only the order of P·V's sums), each of
+    Q·Kᵀ and P·V as ``passes`` TF32 products."""
     def product(a, b):
         return _tf32_product(a, b, passes)
-    return _tiled_attention(q, k, v, qk=product, pv=product, tile=32)
+    return _tiled_attention(q, k, v, qk=product, pv=product, tile=tile)
 
 
 def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
@@ -324,15 +329,17 @@ def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
 
 
 @pytest.mark.parametrize("shape", [
-    (1, 256, 8, 2, 128),       # phi3-medium's heads: d = 128, GQA 4:1, 4 tiles of 64 keys
+    (1, 256, 8, 2, 128),       # phi3-medium's heads: d = 128, GQA 4:1, 8 tiles of 32 keys
     (2, 160, 4, 4, 16),        # the reduced dense model's heads (the reduced serve check)
+    (1, 256, 4, 4, 256),       # gemma-7b's heads: d = 256, H = KV, 8 tiles of 32 keys
 ])
 def test_three_tf32_passes_hold_the_float32_card_gate_where_one_breaks_it(shape):
     """The card check holds float32 B4 to its plain version within 1e-4
     (``chip_smoke.py``'s ATTN gate, ``ATTN_RTOL["float32"] = 0``).  One
     TF32 product keeps ~11 bits of each operand and moves the output by
     several times that limit; three (x = x_hi + x_lo, the x_lo·y_lo term
-    dropped) stay far within it, causal, over several key tiles."""
+    dropped) stay far within it, causal, over several key tiles of the
+    body's size."""
     b, s, h, kv, d = shape
     q = torch.from_numpy(_normal(31, b, s, h, d))
     k = torch.from_numpy(_normal(32, b, s, kv, d))

@@ -124,6 +124,10 @@ ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
     (1, 97, 130, 4, 1, 48),         # ... 48 (V zero-padded to N = 64), S != T ...
     (2, 300, 300, 4, 4, 80),        # ... 80 (N = 96) ...
     (1, 190, 190, 8, 2, 112),       # ... and 112 (N = 128), the most registers
+    (1, 100, 100, 4, 2, 136),       # float32 above 128: d at run time, columns past it zero
+    (2, 77, 77, 4, 4, 200),
+    (4, 2048, 2048, 16, 16, 256),   # gemma-7b's float32 serve prefill
+    (1, 2048, 2048, 16, 16, 256),   # gemma-7b's heads at batch 1 (bfloat16 on "simt")
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -145,12 +149,12 @@ def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dt
 def test_flash_attention_entry_point_refuses_a_body_it_cannot_take(card):
     """The C side returns cudaErrorInvalidValue (1) for the wgmma body on
     float32, on d = 40 or on d = 256, and for the wgmma_f32 body on
-    bfloat16 or on d = 256, without launching."""
+    bfloat16 (at d = 128 and at d = 256), without launching."""
     fn = bind("flash_attention", "flash_attention_fwd", fa_kernel._ARGTYPES)
     stream = torch.cuda.current_stream(card).cuda_stream
     for body, dtype, d in (("wgmma", torch.float32, 128), ("wgmma", torch.bfloat16, 40),
                            ("wgmma", torch.bfloat16, 256), ("wgmma_f32", torch.bfloat16, 128),
-                           ("wgmma_f32", torch.float32, 256)):
+                           ("wgmma_f32", torch.bfloat16, 256)):
         q = torch.zeros(1, 64, 2, d, dtype=dtype, device=card)
         out = torch.empty_like(q)
         rc = fn(fa_kernel.BODIES[body], fa_kernel.DTYPES[dtype], q.data_ptr(), q.data_ptr(),

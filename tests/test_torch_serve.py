@@ -253,6 +253,40 @@ def test_decode_past_the_cache_raises():
         forward_decode(params, torch.zeros(1, 1, dtype=torch.int32), cache, cfg, RUN)
 
 
+# ------------------------------------------------------- gemma's head width
+def test_gemma_at_its_own_head_width_matches_the_reference():
+    """``scale_down`` gives every reduced model heads of 64; gemma-7b's are
+    256, the width at which its prefill (B4) and decode (B5) run.  The same
+    reduced config with ``head_dim=256`` in both packages, the reference's
+    weights: prefill logits, the full forward, and 8 decode steps' logits
+    and caches within 1e-4."""
+    jcfg = dataclasses.replace(j_scale_down(J_ARCHS["gemma-7b"]), head_dim=256)
+    cfg = dataclasses.replace(scale_down(ARCHS["gemma-7b"]), head_dim=256)
+    assert cfg.resolved_head_dim == jcfg.resolved_head_dim == 256 and cfg.num_heads == cfg.num_kv_heads
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    assert params["layer_0"]["attn"]["wq"].shape == (cfg.d_model, cfg.num_heads * 256)
+
+    tokens = _tokens(14, 2, 32, cfg.vocab)
+    ref = jax.jit(j_build_prefill_step(jcfg, J_RUN))(jparams, {"tokens": jnp.asarray(tokens)})
+    _close(t_serve.build_prefill_step(cfg, RUN)(params, {"tokens": torch.from_numpy(tokens)}), ref,
+           LOGIT_TOL)
+    full = j_forward_lm(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, J_RUN, mode="train")
+    _close(forward_lm(params, {"tokens": torch.from_numpy(tokens)}, cfg, RUN, mode="train"), full,
+           LOGIT_TOL)
+
+    jstep = jax.jit(j_forward_decode, static_argnums=(3, 4))
+    jcache = j_init_decode_cache(jcfg, 2, 12, jnp.float32)
+    cache = init_decode_cache(cfg, 2, 12, torch.float32, device="cpu")
+    for t in range(8):
+        jlogits, jcache = jstep(jparams, jnp.asarray(tokens[:, t:t + 1]), jcache, jcfg, J_RUN)
+        logits, cache = forward_decode(params, torch.from_numpy(tokens[:, t:t + 1]), cache, cfg, RUN)
+        _close(logits, jlogits, LOGIT_TOL)
+        for kc, jkc in zip(cache.layers, jcache.layers, strict=True):
+            _close(kc.k, jkc.k, LOGIT_TOL)
+            _close(kc.v, jkc.v, LOGIT_TOL)
+
+
 # ---------------------------------------------------------------- the launcher
 def test_serve_flow_matches_the_reference_launcher():
     """The launcher's flow, as ``repro.launch.serve`` runs it: prefill, then
