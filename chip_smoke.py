@@ -118,10 +118,13 @@ B5_GEMMA = (4, 16, 16, 256, 2113, "float32", (64,) * 4)
 B5_SHAPES = (
     B5_SERVE,
     B5_GEMMA,
+    (4, 40, 10, 128, 2113, "float32", (2113,) * 4),            # phi3's serve shape, full cache
     (8, 40, 10, 128, 32768, "float32", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (4, 48, 1, 128, 8192, "float32", (0, 1, 8192, 3000)),     # granite-20b's MQA group
     (4, 16, 16, 256, 8192, "float32", (0, 1, 8192, 3000)),    # gemma-7b
+    (4, 40, 8, 128, 8192, "bfloat16", (0, 1, 8192, 3000)),    # qwen2.5-32b's group of 5
+    (1, 48, 1, 256, 4096, "float32", (3001,)),                # 48 heads of 256: 12 blocks a split
 )
 # B6 against its plain version, element by element within 1e-4 + 1e-4·|ref|:
 # both are float32 and sum the chunk's cumulative log-decay in float64, so
@@ -293,6 +296,33 @@ def check_b4_build(info: dict) -> None:
             fail(f"B4's library holds no {kind} HGMMA instruction: the {label} body is not on the "
                  f"tensor cores (HGMMA: {[op for op in ops if op.startswith('HGMMA')]})")
         print(f"  B4 library, {label}: {sum(hgmma.values())} {kind} HGMMA instructions {hgmma}")
+
+
+def check_b5_build(info: dict) -> None:
+    """Each of B5's instantiations as built: ptxas reports it, without
+    spills."""
+    entries = [e for e in ptxas_entries(info["log"]) if "flash_decode_kernel" in e["name"]]
+    if not entries:
+        fail("ptxas reported no kernel of B5")
+    for e in entries:
+        inst = re.search(r"flash_decode_kernelI(.*?)EEv", e["name"])
+        print(f"  B5 {inst.group(1) if inst else e['name'][:60]}: {e['registers']} registers, "
+              f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
+        if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+            fail(f"B5's kernel spills or went unreported: {e}")
+
+
+def kernels_a_call(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in device_events(prof)]
 
 
 def check_b6_build(info: dict) -> None:
@@ -494,15 +524,7 @@ def check_batched_kernels(torch, rows) -> None:
 def sdpa_backend(fn) -> tuple[str, list[str]]:
     """Which backend ``scaled_dot_product_attention`` ran, read from the
     names of the device kernels of one call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({e.name for e in device_events(prof)})
+    names = sorted(set(kernels_a_call(fn)))
     low = " ".join(names).lower()
     for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
                        ("mem_eff", "efficient"), ("efficient", "efficient")):
@@ -537,13 +559,17 @@ def check_attention_kernels(torch, rows) -> None:
     every B5 row also time SDPA on K/V repeated to H heads outside the
     timed call, and the library time is the faster of the two.  A "wgmma_f32" row's bound is
     its 3xTF32 products at the TF32 rate (or its bytes), printed beside the
-    float32-FMA bound."""
+    float32-FMA bound.  A B5 row prints its splits and the device kernels
+    of one call, and fails unless that is one kernel and the row beats its
+    plain version."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention, select_body
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.flash_decode.kernel import flash_decode
+    from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
     from repro_torch.kernels.flash_decode.ref import decode_ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(g, shape, dtype):
         return torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dtype))
@@ -642,15 +668,22 @@ def check_attention_kernels(torch, rows) -> None:
 
         backend, names = sdpa_backend(library)
         rep_backend, _ = sdpa_backend(repeated)
-        live = sum(t if n <= 0 else min(n, t) for n in lens)
+        # the positions whose V (every live one) and K (only where cache_len
+        # > 0: an empty cache's output is the mean of V) the function reads
+        v_live = sum(t if n <= 0 else min(n, t) for n in lens)
+        k_live = sum(min(n, t) for n in lens if n > 0)
         es = q.element_size()
+        splits = decode_splits(b, t, h, kv, sms)
+        launched = kernels_a_call(lambda: flash_decode(q, kc, vc, cache_len))
         row = timed_row(lambda: flash_decode(q, kc, vc, cache_len),
                         lambda: decode_ref(q, kc, vc, cache_len), library=library,
                         n=20, inner=10, reps=5,
                         ops_per_s=F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S,
                         shape=[b, h, kv, d, t], dtype=dtype, cache_len=list(lens),
-                        bytes=2 * q.numel() * es + 2 * live * kv * d * es, ops=4 * d * h * live,
-                        max_abs_err=err, mean_abs_ref=mag, diff_over_limit=worst, sdpa_backend=backend)
+                        bytes=2 * q.numel() * es + (k_live + v_live) * kv * d * es,
+                        ops=2 * d * h * (k_live + v_live), splits=splits,
+                        kernels_a_call=len(launched), max_abs_err=err, mean_abs_ref=mag,
+                        diff_over_limit=worst, sdpa_backend=backend)
         rep_ms = device_ms(repeated, n=20) or median_ms(repeated, inner=10, reps=5)
         row.update(library_gqa_ms=row["library_ms"], sdpa_repeat_backend=rep_backend,
                    library_repeat_ms=rep_ms, library_ms=min(row["library_ms"], rep_ms))
@@ -660,7 +693,13 @@ def check_attention_kernels(torch, rows) -> None:
               + describe(row)
               + f"; SDPA (GQA) {backend} {row['library_gqa_ms'] * 1e3:.2f} us "
               f"({', '.join(n[:60] for n in names[:3])}), on K/V repeated to H heads {rep_backend} "
-              f"{rep_ms * 1e3:.2f} us")
+              f"{rep_ms * 1e3:.2f} us; {splits} splits a (batch, KV head, head group), "
+              f"{len(launched)} device kernel(s) a call {sorted(set(n[:40] for n in launched))}")
+        if len(launched) != 1:
+            fail(f"flash_decode at {(b, h, kv, d, t, dtype)} launched {len(launched)} device kernels a call")
+        if row["ms"] > row["plain_ms"]:
+            fail(f"flash_decode at {(b, h, kv, d, t, dtype, lens)}: {row['ms'] * 1e3:.1f} us, slower than "
+                 f"its plain version's {row['plain_ms'] * 1e3:.1f} us")
         del q, kc, vc, q4, kt, vt, kr, vr
         torch.cuda.empty_cache()
 
@@ -1419,6 +1458,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"    {line.strip()}")
     check_b4_build(built["flash_attention"])
+    check_b5_build(built["flash_decode"])
     check_b6_build(built["ssd_scan"])
 
     print("kernels vs plain versions on the card:")
@@ -1501,7 +1541,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
-        summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms",
+        summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms", "splits",
+                                                 "kernels_a_call",
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],

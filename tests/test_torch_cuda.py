@@ -15,7 +15,7 @@ from repro_torch.kernels._launch import bind
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
 from repro_torch.kernels.iou_match.ref import iou_ref
@@ -169,6 +169,8 @@ def test_flash_attention_entry_point_refuses_a_body_it_cannot_take(card):
     (4, 40, 10, 128, 1000),         # phi3-medium's heads, a ragged last block
     (2, 48, 1, 128, 300),           # granite-20b's MQA group of 48
     (1, 16, 16, 256, 130),          # gemma
+    (2, 40, 8, 128, 777),           # qwen2.5-32b's group of 5; T no multiple of a split
+    (1, 48, 1, 256, 500),           # 48 heads of 256: twelve blocks a split
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_equals_plain(card, b, h, kv, d, t, dtype):
@@ -187,6 +189,63 @@ def test_flash_decode_kernel_equals_plain(card, b, h, kv, d, t, dtype):
     mean = vc[0].float().mean(dim=0).repeat_interleave(h // kv, dim=0)
     rtol, atol = ATTN_TOL[dtype]
     torch.testing.assert_close(out[0].float(), mean.to(dtype).float(), rtol=rtol, atol=atol)
+
+
+def _decode_inputs(card, b, h, kv, d, t, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(card, dtype)
+                 for shape in ((b, h, d), (b, t, kv, d), (b, t, kv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_edges_of_its_splits(card, dtype):
+    """cache_len one below, at and one above a whole number of positions a
+    split, and of tiles a split: the split of the live range moves a
+    position from one block (or tile) to the next."""
+    b, h, kv, d, t = 6, 8, 2, 64, 1000
+    q, kc, vc = _decode_inputs(card, b, h, kv, d, t, dtype, 7)
+    ns = decode_splits(b, t, h, kv, torch.cuda.get_device_properties(card).multi_processor_count)
+    assert ns > 1
+    for lens in ([ns - 1, ns, ns + 1, 32 * ns - 1, 32 * ns, 32 * ns + 1],
+                 [t - 1, t, t + 1, 1, 2, 31]):
+        cache_len = torch.tensor(lens, dtype=torch.int32, device=card)
+        out = flash_decode(q, kc, vc, cache_len)
+        torch.testing.assert_close(out.float(), decode_ref(q, kc, vc, cache_len).float(),
+                                   rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
+
+
+def test_flash_decode_twice_in_a_row_keeps_each_result(card):
+    b, h, kv, d, t = 4, 40, 10, 128, 2113
+    q, kc, vc = _decode_inputs(card, b, h, kv, d, t, torch.float32, 8)
+    first = torch.tensor([64] * b, dtype=torch.int32, device=card)
+    second = torch.tensor([0, 1, 2113, 999], dtype=torch.int32, device=card)
+    before = flash_decode.launches
+    a = flash_decode(q, kc, vc, first)
+    c = flash_decode(q, kc, vc, second)
+    assert flash_decode.launches == before + 2
+    rtol, atol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(a, decode_ref(q, kc, vc, first), rtol=rtol, atol=atol)
+    torch.testing.assert_close(c, decode_ref(q, kc, vc, second), rtol=rtol, atol=atol)
+
+
+def test_flash_decode_replays_from_a_cuda_graph(card):
+    """One launch a call and no state between calls: a call captured in a
+    CUDA graph, replayed after cache_len changes in place, equals the
+    plain version at each length."""
+    b, h, kv, d, t = 4, 40, 10, 128, 2113
+    q, kc, vc = _decode_inputs(card, b, h, kv, d, t, torch.float32, 9)
+    cache_len = torch.tensor([64] * b, dtype=torch.int32, device=card)
+    flash_decode(q, kc, vc, cache_len)                # builds, and sets the kernel's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, kc, vc, cache_len)
+    rtol, atol = ATTN_TOL[torch.float32]
+    for lens in ([64] * b, [1, 2113, 0, 700], [65] * b):
+        cache_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, decode_ref(q, kc, vc, cache_len), rtol=rtol, atol=atol)
 
 
 # B6 against its plain version: both float32, summing in other orders; the
