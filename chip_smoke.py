@@ -1,14 +1,17 @@
 """Chip smoke for repro_torch: build the CUDA kernels, check each against its
-plain PyTorch version on the card, drive the full-size scan search and the
-full-width multi-query search on the card and hold each against the same
-search on the CPU, then serve the full-width phi3-medium-14b and gemma-7b
-LMs (prefill through kernel B4, greedy decode through kernel B5) and the
-full-width mamba2-370m (prefill through kernel B6, the SSD chunk scan),
-hold each one's decode to teacher forcing, and each reduced LM on the card
-to the same on the CPU; last, prefill phi3-medium-14b in bfloat16 at full
-depth, whose attention runs on B4's bf16 tensor-core ("wgmma") body.  The
-float32 prefills' attention, gemma's heads of 256 included, runs on B4's
-3xTF32 tensor-core body ("wgmma_f32").
+plain PyTorch version on the card (the matcher's fused match-and-update
+step, B3's ``match_update``, bit for bit on every output), drive the
+full-size scan search and the full-width multi-query search on the card,
+hold each against the same search on the CPU and require one fused matcher
+launch a frame (batched: a cohort slot), then the matcher's cosine path
+(B3's IoU matrix, op by op) the same way; then serve the full-width
+phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
+through kernel B5) and the full-width mamba2-370m (prefill through kernel
+B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
+each reduced LM on the card to the same on the CPU; last, prefill
+phi3-medium-14b in bfloat16 at full depth, whose attention runs on B4's
+bf16 tensor-core ("wgmma") body.  The float32 prefills' attention, gemma's
+heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
 
     python3 chip_smoke.py
 
@@ -21,6 +24,7 @@ card's name and power limit as nvidia-smi reports them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -52,6 +56,16 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   method="pallas", trace_every=256,
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
+# the matcher's cosine path (feat_thresh > -1, which no plan, CLI or config
+# sets): op by op, with B3's iou_matrix for its IoU; driven on dashcam, card
+# against CPU, so that the kernel it keeps is launched and checked
+COSINE_FEAT_THRESH = 0.9
+COSINE_SCAN_PLAN = dict(HOST_CHECK_PLAN)
+COSINE_MULTI_PLAN = dict(MULTI_PLAN, max_steps=SOLO_CHECK_STEPS)
+# the fused matcher step's kernel-phase rows: (D, R) and (Q, D, R); the
+# main path's (16, 8192) and, batched, the multi path's (8, 16, 8192)
+MATCH_SHAPES = ((16, 8192), (13, 1000), (1, 1))
+MATCH_BATCHED_SHAPES = ((8, 16, 8192), (3, 13, 1000))
 # the LM serving paths, at full width in the launcher's float32, 64 greedy
 # tokens each: phi3-medium-14b (dense) and gemma-7b (dense, the launcher's
 # default arch, heads of 256) with 4 requests of a 2,048-token prompt;
@@ -174,6 +188,13 @@ def median_ms(fn, *, inner: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+# Host time a short profile spends before and after its device work.  The
+# device's timestamps reach the profile shifted by milliseconds against the
+# host's, and an activity outside the host's window is dropped: now and then
+# a capture of one short call, unpadded, kept no device activity at all.
+CAPTURE_PAD_S = 0.05
+
+
 def device_events(prof):
     """The device-side activities (kernels, copies, fills) of a profile,
     without the device-timeline copies of ``record_function`` ranges and
@@ -196,9 +217,11 @@ def device_ms(fn, *, n: int = 50) -> float | None:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(CAPTURE_PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(CAPTURE_PAD_S)
     total_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
     return total_us / n / 1e3 if total_us > 0 else None
 
@@ -312,17 +335,51 @@ def check_b5_build(info: dict) -> None:
             fail(f"B5's kernel spills or went unreported: {e}")
 
 
-def kernels_a_call(fn) -> list[str]:
-    """The device kernels one call of ``fn`` launches, by name (profiler)."""
+def check_b3_build(info: dict) -> None:
+    """Each of B3's kernels as built (the IoU matrix and the fused matcher
+    step): ptxas reports it, without spills."""
+    for key in ("iou_matrix_kernel", "match_update_kernel"):
+        found = [e for e in ptxas_entries(info["log"]) if key in e["name"]]
+        if not found:
+            fail(f"ptxas reported no {key}")
+        for e in found:
+            print(f"  B3 {key}: {e['registers']} registers, spill stores {e['spill_stores']} B, "
+                  f"spill loads {e['spill_loads']} B")
+            if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+                fail(f"B3's {key} spills or went unreported: {e}")
+
+
+WITNESS = "spin_kernel"        # the kernel of torch.cuda._sleep
+
+
+def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name (profiler).
+
+    The call is bracketed by two witness kernels (``torch.cuda._sleep``) on
+    the same stream and padded with host time (CAPTURE_PAD_S, longer at each
+    try).  A capture that lacks either witness lost its device activities
+    and is taken again, up to ``tries`` times; the check fails if none saw
+    both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in device_events(prof)]
+    for attempt in range(tries):
+        pad = CAPTURE_PAD_S * 4 ** attempt
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        names = [e.name for e in device_events(prof)]
+        if sum(WITNESS in n for n in names) == 2:
+            return [n for n in names if WITNESS not in n]
+        print(f"  (profiler capture saw {sum(WITNESS in n for n in names)} of its 2 witness kernels and "
+              f"{len(names)} device activities; taken again)")
+    fail(f"the profiler saw its witness kernels in none of {tries} captures")
 
 
 def check_b6_build(info: dict) -> None:
@@ -465,6 +522,7 @@ def check_kernels(torch) -> dict:
         rows[("iou_matrix", d, r)] = row
         print(f"  iou_matrix D={d:>3} R={r:>5}: bit-equal; " + describe(row))
     check_batched_kernels(torch, rows)
+    check_match_update(torch, rows)
     return rows
 
 
@@ -519,6 +577,108 @@ def check_batched_kernels(torch, rows) -> None:
         rows[("iou_matrix_batched", q, d, r)] = row
         print(f"  iou_matrix_batched Q={q} D={d:>3} R={r:>5}: bit-equal, and equal to the 2-D kernel "
               f"per slice; " + describe(row))
+
+
+def match_case(torch, case, *, query_stride=False):
+    """A state of ``tests/_match_states.py`` (``frame_case`` or
+    ``batch_case``) on the card: (MatcherState, detections and ids as the
+    scan path gives them: video and chunk int32, frame int64); with
+    ``query_stride`` the detections are a cohort slot's view of a [Q, 2, D]
+    batch, as the multi path gives them."""
+    from repro_torch.core.matcher import MatcherState
+    from repro_torch.kernels.iou_match.ref import RING_FIELDS
+
+    cuda = torch.device("cuda")
+    state = MatcherState(**{k: torch.as_tensor(case["ring"][k]).to(cuda) for k in RING_FIELDS},
+                         time_gate=case["time_gate"])
+    det = [torch.as_tensor(case["det"][k]).to(cuda) for k in ("boxes", "feats", "valid")]
+    if query_stride:
+        det = [torch.stack([torch.zeros_like(v), v], 1)[:, 1] for v in det]
+    ids = [torch.as_tensor(v, dtype=t, device=cuda)
+           for v, t in zip(case["ids"], (torch.int32, torch.int64, torch.int32))]
+    return state, (*det, *ids)
+
+
+def step_diffs(got, want) -> list[str]:
+    """The outputs and ring fields on which two matcher steps differ (bits
+    and dtype)."""
+    from repro_torch.kernels.iou_match.ref import RING_FIELDS
+
+    pairs = [(n, getattr(got, n), getattr(want, n)) for n in got._fields if n != "new_state"]
+    pairs += [(n, getattr(got.new_state, n), getattr(want.new_state, n)) for n in RING_FIELDS]
+    return [n for n, a, b in pairs if not bits_equal(a, b)]
+
+
+def match_bytes(q: int, d: int, r: int, f: int) -> int:
+    """Bytes the fused step must move: per slot the ring's box, features,
+    video, frame, chunk and times_seen read and written and cross_home
+    written; per detection its box, features and valid read and is_new
+    written; per query the three ids (at most 8 bytes each), cursor and
+    total read and five int32 scalars written."""
+    return q * (r * (2 * (32 + 4 * f) + 4) + d * (16 + 4 * f + 2) + 24 + 8 + 20)
+
+
+def check_match_update(torch, rows) -> None:
+    """The fused matcher step (B3's match_update, 2-D and batched) against
+    its plain version on the card, bit for bit on every output and ring
+    field, on states built to hit each of its rules (tests/_match_states.py:
+    ties across the cluster's block boundaries, an IoU exactly at the
+    threshold, |Δframe| at and one past the gate, another video, an empty
+    slot, invalid detections, 1 -> 2 from another chunk, several detections
+    on one entry, a full ring wrapping over a slot bumped in the same
+    frame, and, batched, an inactive query); one device kernel a call;
+    each batched slice equal to the 2-D kernel."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _match_states import batch_case, frame_case
+    from repro_torch.kernels.iou_match.kernel import match_update, match_update_batched
+    from repro_torch.kernels.iou_match.ref import RING_FIELDS, match_update_ref
+
+    for d, r in MATCH_SHAPES:
+        case = frame_case(d * 131 + r, d, r)
+        state, args = match_case(torch, case)
+        k = match_update(state, *args)
+        p = match_update_ref(state, *args)
+        torch.cuda.synchronize()
+        diffs = step_diffs(k, p)
+        if diffs:
+            fail(f"match_update != plain at (D={d}, R={r}) on {diffs}")
+        names = kernels_a_call(lambda: match_update(state, *args))
+        if len(names) != 1:
+            fail(f"match_update at (D={d}, R={r}) launched {names}, not one kernel")
+        f = state.feats.shape[-1]
+        row = timed_row(lambda: match_update(state, *args), lambda: match_update_ref(state, *args),
+                        shape=[d, r], bytes=match_bytes(1, d, r, f), ops=25 * d * r, max_abs_err=0.0)
+        rows[("match_update", d, r)] = row
+        print(f"  match_update D={d:>3} R={r:>5}: bit-equal on every output (d0 {int(k.d0)}, d1 {int(k.d1)}, "
+              f"cross_chunk {int(k.cross_chunk)}, roles {sorted(case['roles'])}), one kernel a call; "
+              + describe(row))
+    for q, d, r in MATCH_BATCHED_SHAPES:
+        case = batch_case(q * 977 + d + r, q, d, r)
+        state, args = match_case(torch, case, query_stride=True)
+        k = match_update_batched(state, *args)
+        p = match_update_ref(state, *args)
+        torch.cuda.synchronize()
+        diffs = step_diffs(k, p)
+        if diffs:
+            fail(f"match_update_batched != plain at (Q={q}, D={d}, R={r}) on {diffs}")
+        if bool(k.is_new[-1].any()) or int(k.d0[-1]) or int(k.d1[-1]):
+            fail("match_update_batched: the inactive query's detections counted")
+        for i, one in enumerate(case["cases"]):
+            one_state, one_args = match_case(torch, one)
+            solo = match_update(one_state, *one_args)
+            sliced = k._replace(**{n: getattr(k, n)[i] for n in k._fields[:5]}, new_state=dataclasses.replace(
+                k.new_state, **{n: getattr(k.new_state, n)[i] for n in RING_FIELDS}))
+            if step_diffs(sliced, solo):
+                fail(f"match_update_batched query {i} != match_update at (D={d}, R={r})")
+        names = kernels_a_call(lambda: match_update_batched(state, *args))
+        if len(names) != 1:
+            fail(f"match_update_batched at (Q={q}, D={d}, R={r}) launched {names}, not one kernel")
+        f = state.feats.shape[-1]
+        row = timed_row(lambda: match_update_batched(state, *args), lambda: match_update_ref(state, *args),
+                        shape=[q, d, r], bytes=match_bytes(q, d, r, f), ops=25 * q * d * r, max_abs_err=0.0)
+        rows[("match_update_batched", q, d, r)] = row
+        print(f"  match_update_batched Q={q} D={d:>3} R={r:>5} (last query inactive): bit-equal on every "
+              f"output, and equal to the 2-D kernel per query; one kernel a call; " + describe(row))
 
 
 def sdpa_backend(fn) -> tuple[str, list[str]]:
@@ -710,12 +870,14 @@ def kernel_fns() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_decode.kernel import flash_decode
-    from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
+    from repro_torch.kernels.iou_match.kernel import (iou_matrix, iou_matrix_batched, match_update,
+                                                      match_update_batched)
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
 
     return {"thompson_choose": thompson_choose, "thompson_choose_batched": thompson_choose_batched,
             "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
+            "match_update": match_update, "match_update_batched": match_update_batched,
             "flash_attention": flash_attention, "flash_decode": flash_decode, "ssd_scan": ssd_scan}
 
 
@@ -730,9 +892,11 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
-def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.nullcontext):
+def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.nullcontext,
+               feat_thresh=-1.0):
     """One search; ``around()`` is entered around ``plan.run`` alone (set-up
-    excluded).  Returns (SearchResult, wall seconds of plan.run, M)."""
+    excluded); ``feat_thresh`` the matcher's (-1: IoU only, every entry
+    point's).  Returns (SearchResult, wall seconds of plan.run, M)."""
     from repro_torch.core import SearchPlan, init_carry, init_matcher, init_state, prng
     from repro_torch.sim import generate, oracle_detect
 
@@ -743,7 +907,7 @@ def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.n
         return oracle_detect(repo, frame, query_class=0)
 
     carry = init_carry(init_state(chunks.length, device=device),
-                       init_matcher(max_results=MATCHER_CAPACITY, device=device),
+                       init_matcher(max_results=MATCHER_CAPACITY, feat_thresh=feat_thresh, device=device),
                        prng.PRNGKey(0, device=device))
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -801,8 +965,9 @@ def main_path(torch, name, setup) -> dict:
     diffs = same_search(gpu, ref)
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
-    if (launches["thompson_choose"] != rounds or launches["iou_matrix"] != frames
-            or launches["thompson_choose_batched"] or launches["iou_matrix_batched"]):
+    if (launches["thompson_choose"] != rounds or launches["match_update"] != frames
+            or launches["thompson_choose_batched"] or launches["match_update_batched"]
+            or launches["iou_matrix"] or launches["iou_matrix_batched"]):
         fail(f"{name}: launches {launches} != rounds {rounds} / frames {frames}")
     print(f"  {name}: M={m} chunks, {gpu.results[0]} results in {frames} frames / {rounds} rounds; "
           f"card == CPU exactly; card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s "
@@ -877,7 +1042,8 @@ def profile_path(torch, label: str, run, cohorts: int) -> None:
 
 # ------------------------------------------------------------ multi path
 
-def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=contextlib.nullcontext):
+def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=contextlib.nullcontext,
+              feat_thresh=-1.0):
     """The multi kind as its CLI runs it: one class-agnostic oracle,
     ``class_select`` per query, keys ``fold_in(PRNGKey(0), q)``.  Returns
     as :func:`run_search` does."""
@@ -888,7 +1054,8 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
     plan = SearchPlan.from_dict(plan_dict)
     key = prng.PRNGKey(0, device=device)
     carry = init_carry_multi(init_state(chunks.length, device=device),
-                             init_matcher(max_results=MATCHER_CAPACITY, device=device),
+                             init_matcher(max_results=MATCHER_CAPACITY, feat_thresh=feat_thresh,
+                                          device=device),
                              torch.stack([prng.fold_in(key, q) for q in range(len(classes))]))
 
     def det(keys, frames):
@@ -908,8 +1075,8 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
 
 def multi_path(torch, name, setup) -> dict:
     """The full-width multi-query search on the card, held exactly to the
-    same search on the CPU; B2 must run once per round and the batched B3
-    once per cohort slot."""
+    same search on the CPU; B2 must run once per round and the batched
+    fused matcher step once per cohort slot."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     reset_launches()
     gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda)
@@ -930,8 +1097,9 @@ def multi_path(torch, name, setup) -> dict:
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
     if (launches["thompson_choose_batched"] != rounds
-            or launches["iou_matrix_batched"] != rounds * cohorts
-            or launches["thompson_choose"] or launches["iou_matrix"]):
+            or launches["match_update_batched"] != rounds * cohorts
+            or launches["thompson_choose"] or launches["match_update"]
+            or launches["iou_matrix"] or launches["iou_matrix_batched"]):
         fail(f"{name}: launches {launches} != {rounds} rounds / {rounds * cohorts} cohort slots")
     print(f"  {name}: M={m} chunks, Q={len(MULTI_CLASSES)} classes {list(MULTI_CLASSES)}; results "
           f"{list(gpu.results)} in steps {list(gpu.steps)}; {rounds} rounds; card == CPU exactly "
@@ -942,6 +1110,34 @@ def multi_path(torch, name, setup) -> dict:
           f"{st.cache_hits} cache hits (hit rate {st.cache_hit_rate:.4f}), "
           f"amortization {st.amortization:.4f}x; launches {launches}")
     return launches
+
+
+def cosine_path(torch, name, setup) -> dict:
+    """The matcher's cosine path (``COSINE_FEAT_THRESH``): a scan and a
+    multi search on the card, each held exactly to the same search on the
+    CPU; the op-by-op step runs B3's iou_matrix once a frame (scan) and its
+    batched form once a cohort slot (multi), and the fused step never.
+    Returns the launches of the two runs."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for kind, plan, run in (("scan", COSINE_SCAN_PLAN, run_search), ("multi", COSINE_MULTI_PLAN, run_multi)):
+        reset_launches()
+        gpu, gpu_s, _ = run(torch, setup, plan, cuda, feat_thresh=COSINE_FEAT_THRESH)
+        launches = read_launches()
+        ref, _, _ = run(torch, setup, plan, cpu, feat_thresh=COSINE_FEAT_THRESH)
+        diffs = same_search(gpu, ref)
+        if diffs:
+            fail(f"{name} {kind}, cosine matcher: card run != CPU run on {diffs}")
+        frames = gpu.stats.frames_sampled
+        kernel = "iou_matrix" if kind == "scan" else "iou_matrix_batched"
+        want = frames if kind == "scan" else gpu.stats.rounds * plan["cohorts"]
+        if launches[kernel] != want or launches["match_update"] or launches["match_update_batched"]:
+            fail(f"{name} {kind}, cosine matcher: launches {launches}, want {want} of {kernel} "
+                 f"and no fused step")
+        print(f"  {name} {kind}, feat_thresh {COSINE_FEAT_THRESH}: results {list(gpu.results)} in "
+              f"{frames} frames; card == CPU exactly; card {gpu_s:.2f} s; launches {launches}")
+        out[kind] = launches
+    return out
 
 
 def per_query_contract(torch, name, setup) -> None:
@@ -1457,6 +1653,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"    {line.strip()}")
+    check_b3_build(built["iou_matrix"])
     check_b4_build(built["flash_attention"])
     check_b5_build(built["flash_decode"])
     check_b6_build(built["ssd_scan"])
@@ -1495,6 +1692,8 @@ def main() -> int:
     profile_path(torch, "bdd multi Q=8", lambda around: run_multi(
         torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around)[:2],
         MULTI_PLAN["cohorts"])
+    print("cosine matcher path: dashcam scan and multi with feat_thresh set, card vs CPU:")
+    cosine_launches = cosine_path(torch, "dashcam(scale=1.0)", dashcam(scale=1.0))
 
     serve_launches, serve_metrics = {}, {}
     for family, cell in SERVE_CELLS.items():
@@ -1515,10 +1714,14 @@ def main() -> int:
         ("thompson_choose_batched", ("thompson_choose_batched", 8, 50, 1000),
          "src/repro_torch/csrc/thompson_choose.cu", "src/repro/kernels/thompson/kernel.py:114",
          multi_launches["thompson_choose_batched"]),
+        ("match_update", ("match_update", 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
+         "src/repro/kernels/iou_match/kernel.py:37", scan_launches["match_update"]),
+        ("match_update_batched", ("match_update_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
+         "src/repro/kernels/iou_match/kernel.py:37", multi_launches["match_update_batched"]),
         ("iou_matrix", ("iou_matrix", 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
-         "src/repro/kernels/iou_match/kernel.py:37", scan_launches["iou_matrix"]),
+         "src/repro/kernels/iou_match/kernel.py:37", cosine_launches["scan"]["iou_matrix"]),
         ("iou_matrix_batched", ("iou_matrix_batched", 8, 16, 8192), "src/repro_torch/csrc/iou_matrix.cu",
-         "src/repro/kernels/iou_match/kernel.py:37", multi_launches["iou_matrix_batched"]),
+         "src/repro/kernels/iou_match/kernel.py:37", cosine_launches["multi"]["iou_matrix_batched"]),
         ("flash_attention", ("flash_attention", *B4_SERVE), b4_src, b4_tpu,
          serve_launches["dense"]["flash_attention"]),
         ("flash_attention_d256", ("flash_attention", *B4_GEMMA), b4_src, b4_tpu,
@@ -1548,6 +1751,8 @@ def main() -> int:
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
+                                   "cosine_scan": cosine_launches["scan"],
+                                   "cosine_multi": cosine_launches["multi"],
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")

@@ -9,23 +9,30 @@ consumes.
 The multi-query carry holds Q rings as one ``MatcherState`` with a
 leading ``[Q]`` on every tensor (``init_matcher_multi``), and
 ``match_and_update`` folds one frame per query into all Q rings at once;
-the single-query call is the same code without the leading axis.  The
-D×R IoU matrix goes through ``kernels.iou_match`` (kernel B3 on CUDA, its
-plain version on the CPU; one launch per call, batched over Q).  Every
-other step is integer or boolean tensor code, so the rings' contents are
-exact on either device.
+the single-query call is the same code without the leading axis.
+
+The step goes through ``kernels.iou_match``, chosen on the static
+``feat_thresh``:
+- IoU only (``feat_thresh`` = -1, every entry point's matcher): the whole
+  step is ``match_update``, on CUDA one fused launch of kernel B3 (IoU,
+  gating, first-max argmax, counts and ring insert, batched over Q), on
+  the CPU its plain version ``match_update_ref``.
+- With the appearance cosine (``feat_thresh`` > -1, which no plan, CLI or
+  config sets): ``match_update_ref`` op by op on either device, its D×R
+  IoU matrix through ``pairwise_iou`` (B3's ``iou_matrix`` on CUDA).
+The IoU's arithmetic is the same on both paths and devices, and every
+other step is integer or boolean, so the rings' contents are exact.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels.iou_match.ops import iou as _iou
-
-NEG = -1e9
+from repro_torch.kernels.iou_match.ops import match_update
+from repro_torch.kernels.iou_match.ref import MatchResult, match_update_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,41 +112,6 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _iou(a, b)
 
 
-class MatchResult(NamedTuple):
-    """Per frame; each field gains a leading ``[Q]`` in the batched call."""
-
-    d0: torch.Tensor           # i32[] — detections matching nothing (new results)
-    d1: torch.Tensor           # i32[] — results going from seen-once to seen-twice
-    cross_chunk: torch.Tensor  # i32[] — of d1, first seen in another chunk (§3.4)
-    cross_home: torch.Tensor   # i32[R] — home chunks to decrement (-1 = none)
-    is_new: torch.Tensor       # bool[D]
-    new_state: MatcherState
-
-
-def _flat_slots(slot: torch.Tensor, cap: int) -> torch.Tensor:
-    """Ring slots ``[..., D]`` (``cap`` = the pad row) as positions in the
-    flattened padded rings ``[B·(cap+1)]``, each ring with its own pad row:
-    the only repeated positions are pad rows, so no write's winner is left
-    to the device's scatter order."""
-    if slot.dim() == 1:
-        return slot
-    lead = slot.shape[:-1]
-    base = torch.arange(slot[..., 0].numel(), device=slot.device).reshape(lead + (1,)) * (cap + 1)
-    return (base + slot).reshape(-1)
-
-
-def _put(mem: torch.Tensor, flat: torch.Tensor, values: torch.Tensor, nlead: int) -> torch.Tensor:
-    """Scatter ``values`` (``[*lead, D, *tail]``) into rings ``mem``
-    (``[*lead, R, *tail]``, ``nlead`` leading axes) at ``flat``
-    (``_flat_slots``).  Each ring gets a pad row R that absorbs every
-    non-new detection and is then dropped."""
-    lead, r, tail = mem.shape[:nlead], mem.shape[nlead], mem.shape[nlead + 1:]
-    pad = torch.zeros(lead + (1,) + tail, dtype=mem.dtype, device=mem.device)
-    out = torch.cat([mem, pad], dim=nlead).reshape((-1,) + tail)
-    out[flat] = values.to(mem.dtype).expand(lead + (values.shape[nlead],) + tail).reshape((-1,) + tail)
-    return out.reshape(lead + (r + 1,) + tail).narrow(nlead, 0, r)
-
-
 def match_and_update(
     state: MatcherState,
     boxes: torch.Tensor,     # f32[D, 4]   (f32[Q, D, 4])
@@ -158,63 +130,9 @@ def match_and_update(
     the first entry.  Unmatched valid detections are inserted with
     times_seen = 1; matched entries have times_seen bumped.
     """
-    cap = state.capacity
-    dev = state.times_seen.device
-    video_id, frame_id, chunk_id = (torch.as_tensor(v, device=dev) for v in (video_id, frame_id, chunk_id))
-    occupied = state.times_seen > 0                                   # [..., R]
-    iou = pairwise_iou(boxes, state.boxes)                            # [..., D, R]
-    same_video = state.video[..., None, :] == video_id[..., None, None]
-    in_gate = (state.frame[..., None, :].long() - frame_id[..., None, None]).abs() <= state.time_gate
-    match_ok = iou >= state.iou_thresh
-    score_val = iou
     if state.feat_thresh > -1.0:
-        an = feats / torch.clamp_min(torch.linalg.vector_norm(feats, dim=-1, keepdim=True), 1e-9)
-        bn = state.feats / torch.clamp_min(
-            torch.linalg.vector_norm(state.feats, dim=-1, keepdim=True), 1e-9)
-        sim = an @ bn.transpose(-1, -2)
-        match_ok = match_ok | (sim >= state.feat_thresh)
-        score_val = torch.maximum(iou, sim)
-    eligible = occupied[..., None, :] & same_video & in_gate & match_ok
-    scores = torch.where(eligible, score_val, torch.full_like(score_val, NEG))
-
-    best = torch.argmax(scores, dim=-1)                               # first maximum, [..., D]
-    has_match = (scores.gather(-1, best[..., None])[..., 0] > NEG / 2) & valid
-    is_new = valid & ~has_match
-
-    bump = torch.zeros_like(state.times_seen).scatter_add_(-1, best, has_match.int())
-    new_seen = state.times_seen + torch.where(occupied, bump, torch.zeros_like(bump))
-    went_twice = occupied & (state.times_seen == 1) & (new_seen >= 2)
-    d1 = went_twice.sum(-1).int()
-    crossed = went_twice & (state.chunk != chunk_id[..., None])
-    cross_chunk = crossed.sum(-1).int()
-    cross_home = torch.where(crossed, state.chunk, torch.full_like(state.chunk, -1))
-
-    new_i = is_new.int()
-    d0 = new_i.sum(-1).int()
-    order = torch.cumsum(new_i, -1) - new_i
-    slot = torch.where(is_new, torch.remainder(state.cursor[..., None] + order, cap),
-                       torch.full_like(order, cap)).long()
-    flat, nlead = _flat_slots(slot, cap), slot.dim() - 1
-
-    def put(mem, values):
-        return _put(mem, flat, values, nlead)
-
-    def col(v):
-        return v[..., None].expand(slot.shape)
-
-    new_state = dataclasses.replace(
-        state,
-        boxes=put(state.boxes, boxes),
-        feats=put(state.feats, feats),
-        video=put(state.video, col(video_id)),
-        frame=put(state.frame, col(frame_id)),
-        chunk=put(state.chunk, col(chunk_id)),
-        times_seen=put(new_seen, torch.ones_like(slot)),
-        cursor=torch.remainder(state.cursor + d0, cap).int(),
-        total_inserted=(state.total_inserted + d0).int(),
-    )
-    return MatchResult(d0=d0, d1=d1, cross_chunk=cross_chunk, cross_home=cross_home,
-                       is_new=is_new, new_state=new_state)
+        return match_update_ref(state, boxes, feats, valid, video_id, frame_id, chunk_id, iou=pairwise_iou)
+    return match_update(state, boxes, feats, valid, video_id, frame_id, chunk_id)
 
 
 def num_results(state: MatcherState) -> torch.Tensor:

@@ -6,19 +6,24 @@ and PyTorch alone:
 
 Without a card they skip (the kernels have no CPU mode).
 """
+import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from _match_states import FIELDS as RING_FIELDS
+from _match_states import batch_case, frame_case
+from repro_torch.core.matcher import MatcherState, match_and_update
 from repro_torch.kernels._launch import bind
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
-from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched
-from repro_torch.kernels.iou_match.ref import iou_ref
+from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched, match_update, match_update_batched
+from repro_torch.kernels.iou_match.ref import iou_ref, match_update_ref, match_update_split_ref
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
@@ -104,6 +109,140 @@ def test_iou_batched_kernel_equals_plain_and_the_2d_kernel(card, q, d, r):
     assert torch.equal(_bits(out), _bits(iou_ref(a, b)))
     for i in range(q):
         assert torch.equal(_bits(out[i]), _bits(iou_matrix(a[i].contiguous(), b[i].contiguous())))
+
+
+# the fused matcher step: its outputs and the new ring's fields
+MATCH_OUTPUTS = ("d0", "d1", "cross_chunk", "cross_home", "is_new")
+
+
+def _ring(case, device, **kw):
+    return MatcherState(**{k: torch.from_numpy(np.asarray(case["ring"][k])).to(device) for k in RING_FIELDS},
+                        time_gate=case["time_gate"], **kw)
+
+
+def _frame(case, device, *, query_stride=False):
+    """The detections and ids of ``case`` on ``device``: ids as the scan
+    path has them (video and chunk int32, frame int64); with
+    ``query_stride``, the detections as a cohort slot's view of a [Q, 2, D]
+    batch (rows contiguous, queries strided), as the multi path has them."""
+    det = {k: torch.from_numpy(case["det"][k]).to(device) for k in ("boxes", "feats", "valid")}
+    if query_stride:
+        det = {k: torch.stack([torch.zeros_like(v), v], 1)[:, 1] for k, v in det.items()}
+    vid, fid, cid = (torch.as_tensor(v, dtype=t, device=device)
+                     for v, t in zip(case["ids"], (torch.int32, torch.int64, torch.int32)))
+    return det["boxes"], det["feats"], det["valid"], vid, fid, cid
+
+
+def _assert_same_step(got, want):
+    """Every output and ring field equal, bit for bit, dtypes included."""
+    for name in MATCH_OUTPUTS:
+        a, b = getattr(got, name).cpu(), getattr(want, name).cpu()
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for name in RING_FIELDS:
+        a, b = getattr(got.new_state, name).cpu(), getattr(want.new_state, name).cpu()
+        assert a.dtype == b.dtype, name
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), name
+
+
+def _check_step(card, case, kernel, *, query_stride=False):
+    """``kernel`` on the card against the kernel's decomposition on the CPU
+    (8 blocks) always, and against the plain step on the card where no
+    slot takes two inserts (the plain step's scatter then has no repeated
+    index, whose winner a CUDA scatter leaves open)."""
+    state, args = _ring(case, card), _frame(case, card, query_stride=query_stride)
+    got = kernel(state, *args)
+    _assert_same_step(got, match_update_split_ref(_ring(case, "cpu"), *(a.cpu() for a in args), blocks=8))
+    if int(got.d0.max()) <= state.capacity:
+        _assert_same_step(got, match_update_ref(state, *args))
+    return got
+
+
+@pytest.mark.parametrize("d,r", [(16, 8192), (13, 1000), (1, 1), (64, 200), (3, 1), (16, 5), (0, 8)])
+def test_match_update_kernel_equals_plain(card, d, r):
+    for seed in range(3):
+        before = match_update.launches
+        _check_step(card, frame_case(seed * 101 + d + r, d, r), match_update)
+        assert match_update.launches == before + 1
+
+
+@pytest.mark.parametrize("q,d,r", [(8, 16, 8192), (3, 13, 1000), (2, 1, 1), (4, 64, 9)])
+def test_match_update_batched_equals_plain_and_the_2d_kernel(card, q, d, r):
+    case = batch_case(q * 1000 + d + r, q, d, r)
+    before = match_update_batched.launches
+    got = _check_step(card, case, match_update_batched, query_stride=True)
+    assert match_update_batched.launches == before + 1
+    assert not bool(got.is_new[-1].any()) and int(got.d0[-1]) == 0        # the inactive query
+    for i, one in enumerate(case["cases"]):
+        solo = match_update(_ring(one, card), *_frame(one, card))
+        sliced = got._replace(**{n: getattr(got, n)[i] for n in MATCH_OUTPUTS}, new_state=dataclasses.replace(
+            got.new_state, **{n: getattr(got.new_state, n)[i] for n in RING_FIELDS}))
+        _assert_same_step(sliced, solo)
+
+
+def test_match_update_twice_in_a_row_keeps_each_result(card):
+    """Two calls, the second on the first's new ring: neither result is
+    overwritten, and the first's input ring is left as it was."""
+    first, second = frame_case(21, 16, 8192), frame_case(22, 16, 8192)
+    state = _ring(first, card)
+    kept = {n: getattr(state, n).clone() for n in RING_FIELDS}
+    a = match_update(state, *_frame(first, card))
+    a_copy = {n: getattr(a.new_state, n).clone() for n in RING_FIELDS}
+    b = match_update(a.new_state, *_frame(second, card))
+    _assert_same_step(a, match_update_ref(state, *_frame(first, card)))
+    _assert_same_step(b, match_update_ref(a.new_state, *_frame(second, card)))
+    for n in RING_FIELDS:
+        assert torch.equal(getattr(state, n), kept[n]) and torch.equal(getattr(a.new_state, n), a_copy[n]), n
+
+
+def test_match_update_replays_from_a_cuda_graph(card):
+    """One launch a call, no host read: a call captured in a CUDA graph,
+    replayed after its ring, detections and ids change in place, equals
+    the plain step on each."""
+    cases = [frame_case(31 + i, 16, 8192) for i in range(3)]
+    state, args = _ring(cases[0], card), _frame(cases[0], card)
+    match_update(state, *args)                              # builds and loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = match_update(state, *args)
+    for case in cases:
+        for name in RING_FIELDS:
+            getattr(state, name).copy_(getattr(_ring(case, card), name))
+        for t, v in zip(args, _frame(case, card)):
+            t.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same_step(out, match_update_ref(state, *args))
+
+
+def test_match_update_refuses_what_it_cannot_run(card):
+    """More than 64 detections, a ring that is not int32 and ids of
+    another type raise before any launch."""
+    case = frame_case(51, 65, 100)
+    before = match_update.launches
+    with pytest.raises(ValueError, match="at most 64 detections"):
+        match_update(_ring(case, card), *_frame(case, card))
+    case = frame_case(52, 16, 100)
+    state, args = _ring(case, card), _frame(case, card)
+    with pytest.raises(ValueError, match="state.frame"):
+        match_update(dataclasses.replace(state, frame=state.frame.long()), *args)
+    with pytest.raises(ValueError, match="frame_id"):
+        match_update(state, *args[:4], args[4].float(), args[5])
+    assert match_update.launches == before
+
+
+def test_the_cosine_path_on_the_card_equals_the_cpu(card):
+    """feat_thresh > -1 keeps the op-by-op step, with B3's iou_matrix for
+    its IoU, and the fused kernel out of it: the card's result equals the
+    CPU's."""
+    case = frame_case(41, 16, 8192)
+    for k in ("ring", "det"):
+        case[k]["feats"][:] = np.abs(case[k]["feats"])
+    before = (iou_matrix.launches, match_update.launches)
+    got = match_and_update(_ring(case, card, feat_thresh=0.9), *_frame(case, card))
+    assert (iou_matrix.launches, match_update.launches) == (before[0] + 1, before[1])
+    _assert_same_step(got, match_and_update(_ring(case, "cpu", feat_thresh=0.9), *_frame(case, "cpu")))
 
 
 # attention kernels, (rtol, atol): both sides compute in float32 and sum in
