@@ -1,10 +1,11 @@
 """Chip smoke for repro_torch: build the CUDA kernels, check each against its
-plain PyTorch version on the card (the matcher's fused match-and-update
-step, B3's ``match_update``, bit for bit on every output), drive the
-full-size scan search and the full-width multi-query search on the card,
-hold each against the same search on the CPU and require one fused matcher
-launch a frame (batched: a cohort slot), then the matcher's cosine path
-(B3's IoU matrix, op by op) the same way; then serve the full-width
+plain PyTorch version on the card (the fused Thompson round, B1/B2's
+``thompson_round``, and the matcher's fused match-and-update step, B3's
+``match_update``, bit for bit on every output), drive the full-size scan
+search and the full-width multi-query search on the card, hold each against
+the same search on the CPU and require one fused Thompson launch a round and
+one fused matcher launch a frame (batched: a cohort slot), then the
+matcher's cosine path (B3's IoU matrix, op by op) the same way; then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
 through kernel B5) and the full-width mamba2-370m (prefill through kernel
 B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
@@ -45,6 +46,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12          # dense tensor-core rate
 TF32_OPS_PER_S = 495e12          # dense tensor-core rate; 3xTF32 issues 3 products a float32 one
+# one operation a lane a clock on every SM (132 SMs x 128 float32 lanes at 1.98 GHz): the float32
+# rate above counts an FMA as two operations
+ISSUE_OPS_PER_S = F32_OPS_PER_S / 2
 
 MAIN_PLAN = dict(result_limit=200, max_steps=5000, cohorts=50, method="pallas", trace_every=256)
 HOST_CHECK_PLAN = dict(result_limit=40, max_steps=400, cohorts=8, method="pallas", trace_every=64)
@@ -66,6 +70,23 @@ COSINE_MULTI_PLAN = dict(MULTI_PLAN, max_steps=SOLO_CHECK_STEPS)
 # main path's (16, 8192) and, batched, the multi path's (8, 16, 8192)
 MATCH_SHAPES = ((16, 8192), (13, 1000), (1, 1))
 MATCH_BATCHED_SHAPES = ((8, 16, 8192), (3, 13, 1000))
+# the fused Thompson round's kernel-phase rows, (C, M) and (Q, C, M): the scan's
+# dashcam (50, 22) and bdd (50, 1000), the multi path's (8, 50, 1000) and a
+# small batch (3, 50, 22); each on a search's statistics ("sampler", ~20% of
+# chunks exhausted) and on a fresh state ("fresh", chunk 0 exhausted: about
+# half the draws exactly 0, tied); batched, the last query has every chunk
+# exhausted
+ROUND_SHAPES = ((50, 22), (50, 1000))
+ROUND_BATCHED_SHAPES = ((8, 50, 1000), (3, 50, 22))
+# operations an element of the fused round takes, counted from
+# csrc/thompson_choose.cu's source (a rounded division or square root counts
+# as one; its SASS takes several instructions): every (row, chunk) visit
+# converts and compares frames; a chunk not exhausted forms and clamps alpha;
+# a live one runs threefry (73 integer operations), the uniform and the
+# scaling (8), log1p by its branch, ErfInv by its branch, and the
+# Wilson-Hilferty draw with beta and the running maximum (17)
+ROUND_OPS = dict(visit=2, stats=4, live=73 + 8 + 17, log1p_small=19, log1p_large=33, erfinv_lt=22,
+                 erfinv_ge=23)
 # the LM serving paths, at full width in the launcher's float32, 64 greedy
 # tokens each: phi3-medium-14b (dense) and gemma-7b (dense, the launcher's
 # default arch, heads of 256) with 4 requests of a 2,048-token prompt;
@@ -349,17 +370,31 @@ def check_b3_build(info: dict) -> None:
                 fail(f"B3's {key} spills or went unreported: {e}")
 
 
+def check_b1_build(info: dict) -> None:
+    """B1/B2's kernels as built (the z-taking choice and the fused round):
+    ptxas reports each, without spills."""
+    for key in ("thompson_choose_kernel", "thompson_round_kernel"):
+        found = [e for e in ptxas_entries(info["log"]) if key in e["name"]]
+        if not found:
+            fail(f"ptxas reported no {key}")
+        for e in found:
+            print(f"  B1/B2 {key}: {e['registers']} registers, spill stores {e['spill_stores']} B, "
+                  f"spill loads {e['spill_loads']} B")
+            if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+                fail(f"{key} spills or went unreported: {e}")
+
+
 WITNESS = "spin_kernel"        # the kernel of torch.cuda._sleep
 
 
 def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
     """The device kernels one call of ``fn`` launches, by name (profiler).
 
-    The call is bracketed by two witness kernels (``torch.cuda._sleep``) on
-    the same stream and padded with host time (CAPTURE_PAD_S, longer at each
-    try).  A capture that lacks either witness lost its device activities
-    and is taken again, up to ``tries`` times; the check fails if none saw
-    both."""
+    The call is bracketed by witness kernels (``torch.cuda._sleep``), two on
+    each side on the same stream, and padded with host time (CAPTURE_PAD_S,
+    longer at each try).  A capture that lacks any of the four witnesses, or
+    holds a kernel of ``fn`` outside them, lost device activities and is
+    taken again, up to ``tries`` times; the check fails if none was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,16 +405,19 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
             torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
             fn()
+            torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(pad)
-        names = [e.name for e in device_events(prof)]
-        if sum(WITNESS in n for n in names) == 2:
-            return [n for n in names if WITNESS not in n]
-        print(f"  (profiler capture saw {sum(WITNESS in n for n in names)} of its 2 witness kernels and "
-              f"{len(names)} device activities; taken again)")
-    fail(f"the profiler saw its witness kernels in none of {tries} captures")
+        names = [e.name for e in sorted(device_events(prof), key=lambda e: e.time_range.start)]
+        spin = [WITNESS in n for n in names]
+        if sum(spin) == 4 and spin[:2] == [True, True] and spin[-2:] == [True, True]:
+            return names[2:-2]
+        print(f"  (profiler capture saw {sum(spin)} of its 4 witness kernels and {len(names)} device "
+              f"activities, in the order {['w' if w else 'k' for w in spin]}; taken again)")
+    fail(f"the profiler saw {fn} bracketed by its 4 witness kernels in none of {tries} captures")
 
 
 def check_b6_build(info: dict) -> None:
@@ -450,16 +488,17 @@ def thompson_batched_inputs(q: int, c: int, m: int, seed: int):
     return tuple(torch.stack([r[k] for r in rows]).contiguous() for k in range(3))
 
 
-def timed_row(kernel, plain, *, library=None, n=50, inner=20, reps=7, ops_per_s=F32_OPS_PER_S,
+def timed_row(kernel, plain, *, library=None, n=50, plain_n=None, inner=20, reps=7, ops_per_s=F32_OPS_PER_S,
               **row) -> dict:
-    """Device time per call (profiler, mean of ``n``) of the kernel, of its
-    plain version and of the one PyTorch call that computes the same
-    function (``library``, where there is one), and the host-inclusive
-    time per call of the first two (CUDA events around ``inner`` calls,
-    median of ``reps``; the host's launch rate bounds it for small
-    kernels).  The bound is the larger of the bytes over HBM's rate and the
-    operations over ``ops_per_s``."""
-    row.update(ms=device_ms(kernel, n=n), plain_ms=device_ms(plain, n=n),
+    """Device time per call (profiler, mean of ``n``; of the plain version,
+    of ``plain_n`` where it is given) of the kernel, of its plain version
+    and of the one PyTorch call that computes the same function
+    (``library``, where there is one), and the host-inclusive time per call
+    of the first two (CUDA events around ``inner`` calls, median of
+    ``reps``; the host's launch rate bounds it for small kernels).  The
+    bound is the larger of the bytes over HBM's rate and the operations
+    over ``ops_per_s``."""
+    row.update(ms=device_ms(kernel, n=n), plain_ms=device_ms(plain, n=plain_n or n),
                call_ms=median_ms(kernel, inner=inner, reps=reps),
                plain_call_ms=median_ms(plain, inner=inner, reps=reps),
                library_ms=None if library is None else device_ms(library, n=n))
@@ -523,6 +562,7 @@ def check_kernels(torch) -> dict:
         print(f"  iou_matrix D={d:>3} R={r:>5}: bit-equal; " + describe(row))
     check_batched_kernels(torch, rows)
     check_match_update(torch, rows)
+    check_round_kernels(torch, rows)
     return rows
 
 
@@ -616,6 +656,119 @@ def match_bytes(q: int, d: int, r: int, f: int) -> int:
     written; per query the three ids (at most 8 bytes each), cursor and
     total read and five int32 scalars written."""
     return q * (r * (2 * (32 + 4 * f) + 4) + d * (16 + 4 * f + 2) + 24 + 8 + 20)
+
+
+def round_inputs(q, c: int, m: int, seed: int, kind: str):
+    """A key (int64[2]; ``q`` None) or Q keys (``fold_in`` of one) and a
+    ``SamplerState`` of M chunks on the card (see ROUND_SHAPES); with Q
+    queries the last has every chunk exhausted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.state import SamplerState
+
+    rng = np.random.default_rng(seed)
+    shape = (1 if q is None else q, m)
+    if kind == "sampler":
+        n1 = rng.integers(0, 30, shape).astype(np.float32)
+        n = rng.integers(0, 400, shape).astype(np.float32)
+        frames = np.where(rng.random(shape) < 0.2, n, n + rng.integers(1, 500, shape)).astype(np.int32)
+    else:
+        n1, n = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+        frames = np.full(shape, 100, np.int32)
+        frames[:, 0] = 0
+    if q is not None:
+        n[-1] = frames[-1]
+    key = prng.PRNGKey(seed % 2**31, device="cuda")
+    if q is None:
+        n1, n, frames = n1[0], n[0], frames[0]
+    else:
+        key = torch.stack([prng.fold_in(key, i) for i in range(q)])
+    state = SamplerState(n1=torch.from_numpy(n1).cuda(), n=torch.from_numpy(n).cuda(),
+                         frames=torch.from_numpy(frames).cuda())
+    return key, state
+
+
+def round_ops(key, state, cohorts: int) -> int:
+    """The operations the fused round does on these inputs (ROUND_OPS a
+    visit, a chunk not exhausted and a live element, each live element's
+    log1p and ErfInv by the branch its uniform takes)."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.core.thompson import gamma_params
+
+    alpha, _ = gamma_params(state)
+    open_ = ~state.exhausted()
+    live = open_ & (alpha > 0)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = prng.uniform(key, (cohorts, state.num_chunks), lo, 1.0)
+    t = u * -u
+    small = t.abs() < prng._f32(0.41421356237309504880)
+    lt = -prng._xla_log1p_f32(t) < 5.0
+    live = live[..., None, :].expand_as(u)
+    o = ROUND_OPS
+    per_live = (o["live"] + (small * o["log1p_small"] + ~small * o["log1p_large"])
+                + (lt * o["erfinv_lt"] + ~lt * o["erfinv_ge"]))
+    return int(o["visit"] * u.numel() + o["stats"] * cohorts * int(open_.sum()) + per_live[live].sum())
+
+
+def check_round_kernels(torch, rows) -> None:
+    """The fused round (``thompson_round``, batched ``thompson_round_batched``)
+    against its plain version on the card, bit for bit on idx and val; one
+    device kernel a call; batched, each query equal to the single round on
+    its key.  Beside each row, the old path for the same work: the normal
+    op by op, then B1 (B2)."""
+    from repro_torch.core.thompson import _kernel_inputs
+    from repro_torch.kernels.thompson.kernel import (round_splits, thompson_choose, thompson_choose_batched,
+                                                     thompson_round, thompson_round_batched)
+    from repro_torch.kernels.thompson.ref import thompson_round_ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(q, c, m, kind) for q, c, m in [(None, c, m) for c, m in ROUND_SHAPES] + list(ROUND_BATCHED_SHAPES)
+             for kind in ("sampler", "fresh")]
+    checked = []
+    # every row's checks first: the timing's profiles of the op-by-op paths
+    # (~850 launches a call) come after every one-kernel-a-call capture
+    for (q, c, m, kind) in cases:
+        key, state = round_inputs(q, c, m, seed=(q or 1) * 131 + c * 7919 + m, kind=kind)
+        fn = thompson_round if q is None else thompson_round_batched
+        ki, kv = fn(key, state, c)
+        ri, rv = thompson_round_ref(key, state, c)
+        torch.cuda.synchronize()
+        if not torch.equal(ki, ri) or not bits_equal(kv, rv):
+            fail(f"{fn.__name__} != plain at (Q={q}, C={c}, M={m}, {kind}): "
+                 f"{int((ki != ri).sum())} indices differ")
+        if q is not None:
+            if not (bool((ki[-1] == -1).all()) and bool((kv[-1] == -1e30).all())):
+                fail(f"{fn.__name__} on an all-exhausted query must give (-1, -1e30)")
+            for i in range(q):
+                one = dataclasses.replace(state, n1=state.n1[i], n=state.n[i], frames=state.frames[i])
+                bi, bv = thompson_round(key[i].contiguous(), one, c)
+                if not torch.equal(ki[i], bi) or not bits_equal(kv[i], bv):
+                    fail(f"thompson_round_batched query {i} != thompson_round at (C={c}, M={m}, {kind})")
+        names = kernels_a_call(lambda: fn(key, state, c))
+        if len(names) != 1:
+            fail(f"{fn.__name__} at (Q={q}, C={c}, M={m}) launched {names}, not one kernel")
+        checked.append((q, c, m, kind, key, state, fn, int((rv == 0.0).sum())))
+    for (q, c, m, kind, key, state, fn, zero_rows) in checked:
+        old = thompson_choose if q is None else thompson_choose_batched
+        qn = q or 1
+        row = timed_row(lambda: fn(key, state, c), lambda: thompson_round_ref(key, state, c), n=50, plain_n=5,
+                        inner=10, reps=5, ops_per_s=ISSUE_OPS_PER_S, shape=[c, m] if q is None else [q, c, m],
+                        state=kind, bytes=16 * qn + 12 * qn * m + 8 * qn * c, ops=round_ops(key, state, c),
+                        max_abs_err=0.0, splits=round_splits(qn * c, m, sms))
+        row.update(old_ms=device_ms(lambda: old(*_kernel_inputs(key, state, c)), n=5),
+                   old_call_ms=median_ms(lambda: old(*_kernel_inputs(key, state, c)), inner=5, reps=5))
+        old_device = "not measured" if row["old_ms"] is None else f"{row['old_ms'] * 1e3:.2f} us"
+        name = fn.__name__
+        rows[(name, c, m, kind) if q is None else (name, q, c, m, kind)] = row
+        print(f"  {name} {'' if q is None else f'Q={q} '}C={c:>3} M={m:>5} {kind:<7} "
+              f"({row['splits']} blocks a row, {zero_rows} rows drawing 0"
+              f"{', last query all exhausted' if q else ''}): bit-equal, one kernel a call; "
+              + describe(row) + f"; {row['ops']} operations; old path (normal op by op + "
+              f"{old.__name__}) device {old_device}, per call {row['old_call_ms'] * 1e3:.1f} us")
 
 
 def check_match_update(torch, rows) -> None:
@@ -873,9 +1026,11 @@ def kernel_fns() -> dict:
     from repro_torch.kernels.iou_match.kernel import (iou_matrix, iou_matrix_batched, match_update,
                                                       match_update_batched)
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
-    from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
+    from repro_torch.kernels.thompson.kernel import (thompson_choose, thompson_choose_batched, thompson_round,
+                                                     thompson_round_batched)
 
     return {"thompson_choose": thompson_choose, "thompson_choose_batched": thompson_choose_batched,
+            "thompson_round": thompson_round, "thompson_round_batched": thompson_round_batched,
             "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
             "match_update": match_update, "match_update_batched": match_update_batched,
             "flash_attention": flash_attention, "flash_decode": flash_decode, "ssd_scan": ssd_scan}
@@ -965,8 +1120,9 @@ def main_path(torch, name, setup) -> dict:
     diffs = same_search(gpu, ref)
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
-    if (launches["thompson_choose"] != rounds or launches["match_update"] != frames
-            or launches["thompson_choose_batched"] or launches["match_update_batched"]
+    if (launches["thompson_round"] != rounds or launches["match_update"] != frames
+            or launches["thompson_choose"] or launches["thompson_choose_batched"]
+            or launches["thompson_round_batched"] or launches["match_update_batched"]
             or launches["iou_matrix"] or launches["iou_matrix_batched"]):
         fail(f"{name}: launches {launches} != rounds {rounds} / frames {frames}")
     print(f"  {name}: M={m} chunks, {gpu.results[0]} results in {frames} frames / {rounds} rounds; "
@@ -1075,8 +1231,9 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
 
 def multi_path(torch, name, setup) -> dict:
     """The full-width multi-query search on the card, held exactly to the
-    same search on the CPU; B2 must run once per round and the batched
-    fused matcher step once per cohort slot."""
+    same search on the CPU; the batched fused round must run once per round
+    (the z-taking B2 never) and the batched fused matcher step once per
+    cohort slot."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     reset_launches()
     gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda)
@@ -1096,9 +1253,10 @@ def multi_path(torch, name, setup) -> dict:
     diffs = same_search(gpu, ref)
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
-    if (launches["thompson_choose_batched"] != rounds
+    if (launches["thompson_round_batched"] != rounds
             or launches["match_update_batched"] != rounds * cohorts
-            or launches["thompson_choose"] or launches["match_update"]
+            or launches["thompson_choose"] or launches["thompson_choose_batched"]
+            or launches["thompson_round"] or launches["match_update"]
             or launches["iou_matrix"] or launches["iou_matrix_batched"]):
         fail(f"{name}: launches {launches} != {rounds} rounds / {rounds * cohorts} cohort slots")
     print(f"  {name}: M={m} chunks, Q={len(MULTI_CLASSES)} classes {list(MULTI_CLASSES)}; results "
@@ -1653,6 +1811,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"    {line.strip()}")
+    check_b1_build(built["thompson_choose"])
     check_b3_build(built["iou_matrix"])
     check_b4_build(built["flash_attention"])
     check_b5_build(built["flash_decode"])
@@ -1709,6 +1868,11 @@ def main() -> int:
     b4_src, b4_tpu = "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:91"
     b5_src, b5_tpu = "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode/kernel.py:71"
     for kname, key, src, replaces, launches in (
+        ("thompson_round", ("thompson_round", 50, 1000, "sampler"), "src/repro_torch/csrc/thompson_choose.cu",
+         "src/repro/kernels/thompson/kernel.py:73", scan_launches["thompson_round"]),
+        ("thompson_round_batched", ("thompson_round_batched", 8, 50, 1000, "sampler"),
+         "src/repro_torch/csrc/thompson_choose.cu", "src/repro/kernels/thompson/kernel.py:114",
+         multi_launches["thompson_round_batched"]),
         ("thompson_choose", ("thompson_choose", 50, 1000), "src/repro_torch/csrc/thompson_choose.cu",
          "src/repro/kernels/thompson/kernel.py:73", scan_launches["thompson_choose"]),
         ("thompson_choose_batched", ("thompson_choose_batched", 8, 50, 1000),
@@ -1745,7 +1909,7 @@ def main() -> int:
             call_ms=row["call_ms"], plain_call_ms=row["plain_call_ms"],
         ))
         summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms", "splits",
-                                                 "kernels_a_call",
+                                                 "kernels_a_call", "old_ms", "old_call_ms", "state",
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],

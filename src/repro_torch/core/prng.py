@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.numerics import fma32
+from repro_torch.numerics import fma32, sqrt32
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -201,7 +201,7 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ErfInv (Giles' single-precision polynomial)."""
     w = -_xla_log1p_f32(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt32(w) - 3.0)
     # Python-float coefficients: no host-to-device copies
     coeffs = [(_f32(a), _f32(b)) for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
     p = torch.where(lt, *coeffs[0])

@@ -7,13 +7,14 @@ Counterpart of ``repro.core.thompson``.  Three samplers:
     ``jax.random.gamma``; it is held to the reference only statistically.
   * ``"wilson_hilferty"`` — the cube-normal approximation on the port's
     JAX-compatible normals: the same chunk choices as JAX for the same key.
-  * ``"pallas"``          — the fused choice kernel (``kernels.thompson``),
-    with exhaustion encoded as an ``alpha < 0`` sentinel; the same choices
-    as ``"wilson_hilferty"``.
+  * ``"pallas"``          — the fused round (``kernels.thompson``): from the
+    key to the chunk ids in one launch on the card, the normals made in
+    registers, with exhaustion encoded as an ``alpha < 0`` sentinel; the
+    same choices as ``"wilson_hilferty"``.
 
 ``choose_chunks_batched`` is the multi-query choice: Q keys and Q rows of
 statistics decided together, row q equal to ``choose_chunks`` on query q
-(``"pallas"`` in one launch of kernel B2).
+(``"pallas"`` in one launch for all Q queries).
 
 Divisions here are tensor by tensor: on CUDA, dividing by a Python scalar
 becomes a multiply by its reciprocal and can differ in the last bit.
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.state import SamplerState, point_estimate
+from repro_torch.numerics import sqrt32
 
 
 def gamma_params(state: SamplerState) -> tuple[torch.Tensor, torch.Tensor]:
@@ -39,7 +41,7 @@ def wilson_hilferty(alpha: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """X ≈ α · max(1 − 1/(9α) + z/(3√α), 0)³ for X ~ Γ(α, 1), evaluated in
     the reference's operation order."""
     a9 = alpha * 9.0
-    c = (1.0 - torch.ones_like(a9) / a9) + z / (torch.sqrt(alpha) * 3.0)
+    c = (1.0 - torch.ones_like(a9) / a9) + z / (sqrt32(alpha) * 3.0)
     c = torch.clamp_min(c, 0.0)
     return alpha * ((c * c) * c)
 
@@ -75,7 +77,8 @@ def draw_scores_wilson_hilferty(
 
 
 def _kernel_inputs(key: torch.Tensor, state: SamplerState, cohorts: int):
-    """(alpha, beta, z) of the fused choice, exhaustion as alpha = -1."""
+    """(alpha, beta, z) of B1's choice, exhaustion as alpha = -1: what the
+    fused round computes in registers."""
     alpha, beta = gamma_params(state)
     alpha = torch.where(state.exhausted(), torch.full_like(alpha, -1.0), alpha)
     return alpha, beta, prng.normal(key, (cohorts, alpha.shape[-1]))
@@ -95,9 +98,9 @@ def choose_chunks(
         scores = draw_scores_wilson_hilferty(key, state, cohorts=cohorts)
     elif method == "pallas":
         # deferred import: kernels.thompson.ref imports this module
-        from repro_torch.kernels.thompson.ops import choose
+        from repro_torch.kernels.thompson.ops import choose_round
 
-        idx, _ = choose(*_kernel_inputs(key, state, cohorts))
+        idx, _ = choose_round(key, state, cohorts)
         return idx
     else:
         raise ValueError(f"unknown Thompson method: {method!r}")
@@ -126,9 +129,9 @@ def choose_chunks_batched(
     if method == "wilson_hilferty":
         return _first_argmax(draw_scores_wilson_hilferty(keys, state, cohorts=cohorts))
     if method == "pallas":
-        from repro_torch.kernels.thompson.ops import choose_batched
+        from repro_torch.kernels.thompson.ops import choose_round_batched
 
-        idx, _ = choose_batched(*_kernel_inputs(keys, state, cohorts))
+        idx, _ = choose_round_batched(keys, state, cohorts)
         return idx
     raise ValueError(f"unknown Thompson method: {method!r}")
 

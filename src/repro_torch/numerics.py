@@ -15,8 +15,14 @@ and CUDA agree bit for bit.
 One more rule keeps the two devices equal: never divide a CUDA tensor by
 a Python scalar.  PyTorch's CUDA division by a CPU scalar multiplies by
 its reciprocal, which can differ from the division in the last bit.
+
+And take square roots with ``sqrt32``: PyTorch's CPU ``sqrt`` is not
+correctly rounded (about 0.6% of float32 and of float64 inputs come out one
+ulp off), while CUDA's and XLA's are.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,5 +46,27 @@ def fma32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | float) -> 
     bb = s - p                         # TwoSum: err is s's exact rounding error
     err = (p - (s - bb)) + (c - bb)
     tie = (s.view(torch.int64) & _LOW29) == _HALF29
-    s = torch.where(tie & (err != 0), torch.nextafter(s, s + err), s)
+    # err is below half of s's float64 ulp, so s + err rounds back to s:
+    # step toward err's sign (err·inf, NaN only where err is 0 and unused)
+    s = torch.where(tie & (err != 0), torch.nextafter(s, err * math.inf), s)
     return s.float()
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 ``x`` (IEEE ``sqrt``),
+    the same bits on the CPU and on CUDA.
+
+    A float64 root rounded to float32 is within one float32 ulp; it is then
+    moved to the neighbour whose rounding interval holds the root: the
+    midpoints between neighbours have 25 significant bits, so their
+    squares and the comparisons with ``x`` are exact in float64.  Zero,
+    negative, infinite and NaN inputs keep ``torch.sqrt``'s result."""
+    d = x.double()
+    s = torch.sqrt(d).float()
+    sd = s.double()
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    hi = (sd + up.double()) * 0.5
+    lo = (sd + down.double()) * 0.5
+    fixed = torch.where(d > hi * hi, up, torch.where(d < lo * lo, down, s))
+    return torch.where((d > 0) & torch.isfinite(d), fixed, s)

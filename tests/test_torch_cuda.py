@@ -26,8 +26,11 @@ from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched,
 from repro_torch.kernels.iou_match.ref import iou_ref, match_update_ref, match_update_split_ref
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
-from repro_torch.kernels.thompson.kernel import thompson_choose, thompson_choose_batched
-from repro_torch.kernels.thompson.ref import thompson_ref
+from repro_torch.core import prng
+from repro_torch.core.state import SamplerState
+from repro_torch.kernels.thompson.kernel import (round_splits, thompson_choose, thompson_choose_batched,
+                                                 thompson_round, thompson_round_batched)
+from repro_torch.kernels.thompson.ref import thompson_ref, thompson_round_ref, thompson_round_split_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +86,167 @@ def test_thompson_batched_kernel_equals_plain(card, q, c, m):
     for i in range(q):
         bi, bv = thompson_choose(alpha[i].contiguous(), beta[i].contiguous(), z[i].contiguous())
         assert torch.equal(ki[i], bi) and torch.equal(_bits(kv[i]), _bits(bv))
+
+
+def _round_state(q, m, kind, seed, card, alpha0=0.1):
+    """Sampler statistics of ``q`` queries (None: one, no leading axis) over
+    ``m`` chunks: ``sampler`` a search under way with ~20% of chunks
+    exhausted, ``fresh`` all zero with chunk 0 exhausted (whole rows draw
+    exactly 0 at few chunks; every row at alpha0 = 1e-3)."""
+    rng = np.random.default_rng(seed)
+    lead = (1 if q is None else q, m)
+    if kind == "sampler":
+        n1 = rng.integers(0, 30, lead).astype(np.float32)
+        n = rng.integers(0, 400, lead).astype(np.float32)
+        frames = np.where(rng.random(lead) < 0.2, n, n + rng.integers(1, 500, lead)).astype(np.int32)
+    else:
+        n1, n = np.zeros(lead, np.float32), np.zeros(lead, np.float32)
+        frames = np.full(lead, 100, np.int32)
+        frames[:, 0] = 0 if m > 1 else 100
+    if q is None:
+        n1, n, frames = n1[0], n[0], frames[0]
+    return SamplerState(n1=torch.from_numpy(n1).to(card), n=torch.from_numpy(n).to(card),
+                        frames=torch.from_numpy(frames).to(card), alpha0=alpha0)
+
+
+def _round_keys(q, seed, card):
+    key = prng.PRNGKey(seed, device=card)
+    return key if q is None else torch.stack([prng.fold_in(key, i) for i in range(q)])
+
+
+def _same_round(got, want):
+    return torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(_bits(got[1]).cpu(), _bits(want[1]).cpu())
+
+
+@pytest.mark.parametrize("kind", ["sampler", "fresh"])
+@pytest.mark.parametrize("c,m", [(50, 22), (50, 1000), (7, 1025), (1, 1), (50, 10000)])
+def test_thompson_round_equals_plain(card, c, m, kind):
+    """The fused round against its plain version on the card and on the
+    CPU, bit for bit on idx and val."""
+    state = _round_state(None, m, kind, c * 1000 + m, card)
+    key = _round_keys(None, c + m, card)
+    before = thompson_round.launches
+    got = thompson_round(key, state, c)
+    assert thompson_round.launches == before + 1
+    assert _same_round(got, thompson_round_ref(key, state, c))
+    assert _same_round(got, thompson_round_ref(key.cpu(), state.to("cpu"), c))
+
+
+@pytest.mark.parametrize("q,c,m", [(8, 50, 22), (8, 50, 1000), (3, 7, 1025), (3, 50, 22), (1, 1, 1)])
+def test_thompson_round_batched_equals_plain_and_the_single_round(card, q, c, m):
+    """Q queries in one launch, the last with every chunk exhausted (rows
+    (-1, -1e30)); row q equals the single round on key q."""
+    state = _round_state(q, m, "sampler", q * 100000 + c * 1000 + m, card)
+    state.n[-1] = state.frames[-1].float()
+    keys = prng.split(_round_keys(None, q + c, card), 3 * q).reshape(q, 3, 2)[:, 1]   # strided rows
+    before = thompson_round_batched.launches
+    got = thompson_round_batched(keys, state, c)
+    assert thompson_round_batched.launches == before + 1
+    assert _same_round(got, thompson_round_ref(keys.contiguous(), state, c))
+    assert got[0][-1].tolist() == [-1] * c
+    assert torch.equal(got[1][-1], torch.full((c,), -1e30, dtype=torch.float32, device=card))
+    for i in range(q):
+        row = dataclasses.replace(state, n1=state.n1[i], n=state.n[i], frames=state.frames[i])
+        single = thompson_round(keys[i].contiguous(), row, c)
+        assert torch.equal(got[0][i], single[0]) and torch.equal(_bits(got[1][i]), _bits(single[1])), i
+
+
+# (Q or None, C, M) of the fused round's split cases and the S that
+# ``round_splits`` gives each on a card of 132 SMs (the H100 SXM's): 1, 2,
+# 3, 5 and 8 blocks a row, each reached through the shape alone
+ROUND_SPLIT_CASES = [(None, 150, 1000, 1), (None, 50, 22, 1), (None, 100, 1000, 2), (None, 50, 1000, 3),
+                     (None, 7, 1025, 8), (None, 17, 512, 8), (8, 50, 1000, 1), (2, 25, 1000, 3), (2, 3, 300, 5)]
+
+
+def _chosen_splits(card, q, c, m, s132):
+    """``round_splits`` on this card; on 132 SMs it must be ``s132``."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    chosen = round_splits(c * (q or 1), m, sms)
+    assert sms != 132 or chosen == s132, (q, c, m, chosen)
+    return chosen
+
+
+@pytest.mark.parametrize("c,m,s132", [(50, 1, 1), (50, 3, 1), (50, 5, 1), (50, 1000, 3), (150, 1000, 1),
+                                      (100, 1000, 2), (7, 1025, 8)])
+def test_thompson_round_rows_that_draw_zero(card, c, m, s132):
+    """Rows whose every live draw is exactly 0 return the first live index
+    (1: chunk 0 is exhausted) at every split the shapes reach (1, 2, 3
+    and 8 blocks a row on 132 SMs), as the plain version."""
+    _chosen_splits(card, None, c, m, s132)
+    for alpha0 in (0.1, 1e-3):
+        state = _round_state(None, m, "fresh", m, card, alpha0=alpha0)
+        key = _round_keys(None, m + 7, card)
+        want = thompson_round_ref(key, state, c)
+        assert _same_round(thompson_round(key, state, c), want), alpha0
+        zero = want[1] == 0.0
+        assert bool((want[0][zero] == (1 if m > 1 else 0)).all())
+        if alpha0 == 1e-3:
+            assert bool(zero.all())
+
+
+@pytest.mark.parametrize("q,c,m,s132", ROUND_SPLIT_CASES)
+def test_thompson_round_equals_the_split_reference(card, q, c, m, s132):
+    """At the grid ``round_splits`` chooses on this card, the kernel equals
+    ``thompson_round_split_ref`` of the same S (and so the unsplit plain
+    version)."""
+    state = _round_state(q, m, "sampler", 17 * m + c, card)
+    keys = _round_keys(q, m + c, card)
+    chosen = _chosen_splits(card, q, c, m, s132)
+    fn = thompson_round if q is None else thompson_round_batched
+    got = fn(keys, state, c)
+    assert _same_round(got, thompson_round_split_ref(keys, state, c, chosen))
+    assert _same_round(got, thompson_round_ref(keys, state, c))
+
+
+def test_thompson_round_replays_from_a_cuda_graph(card):
+    """The key and the statistics are read on the card: a captured round,
+    replayed after the key and the state change in place, gives each new
+    key's choice (single and batched)."""
+    state = _round_state(None, 1000, "sampler", 1, card)
+    key = _round_keys(None, 1, card).clone()
+    states = _round_state(8, 1000, "sampler", 2, card)
+    keys = _round_keys(8, 2, card).clone()
+    thompson_round(key, state, 50)
+    thompson_round_batched(keys, states, 50)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = thompson_round(key, state, 50)
+        out_b = thompson_round_batched(keys, states, 50)
+    for seed in (3, 4, 5):
+        key.copy_(_round_keys(None, seed, card))
+        keys.copy_(_round_keys(8, seed, card))
+        new, new_b = _round_state(None, 1000, "sampler", seed, card), _round_state(8, 1000, "sampler", seed, card)
+        for s, t in ((state, new), (states, new_b)):
+            s.n1.copy_(t.n1)
+            s.n.copy_(t.n)
+            s.frames.copy_(t.frames)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_round(out, thompson_round_ref(key, state, 50))
+        assert _same_round(out_b, thompson_round_ref(keys, states, 50))
+
+
+def test_thompson_round_refuses_what_it_cannot_run(card):
+    """CPU tensors, statistics of another shape or type and a key of
+    another shape raise before any launch."""
+    state = _round_state(None, 100, "sampler", 9, card)
+    key = _round_keys(None, 9, card)
+    before = (thompson_round.launches, thompson_round_batched.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        thompson_round(key.cpu(), state.to("cpu"), 4)
+    with pytest.raises(ValueError, match="keys"):
+        thompson_round(key.cpu(), state, 4)
+    with pytest.raises(ValueError, match="state"):
+        thompson_round(key, dataclasses.replace(state, frames=state.frames.long()), 4)
+    with pytest.raises(ValueError, match="state"):
+        thompson_round(key, dataclasses.replace(state, n=state.n[:50]), 4)
+    with pytest.raises(ValueError, match="keys"):
+        thompson_round(torch.stack([key, key]), state, 4)
+    states = _round_state(3, 100, "sampler", 9, card)
+    with pytest.raises(ValueError, match="keys"):
+        thompson_round_batched(_round_keys(2, 9, card), states, 4)
+    assert (thompson_round.launches, thompson_round_batched.launches) == before
 
 
 def _boxes(g, card, *shape):
