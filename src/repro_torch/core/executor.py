@@ -16,6 +16,7 @@ from repro_torch.core.chunks import ChunkIndex
 from repro_torch.core.exsample import (
     DetectorFn,
     ExSampleCarry,
+    LoopRecord,
     SelectFn,
     _host_search,
     _multi_search,
@@ -80,6 +81,8 @@ class SearchResult:
     # the multi kind's final DetectionCache, or None; the reference hands
     # it to the repository index (a later slice of the port)
     final_cache: object = None
+    # how the resident loop ran (kinds scan and multi), else None
+    loop: LoopRecord | None = None
 
     @property
     def num_queries(self) -> int:
@@ -147,16 +150,16 @@ class LoweredPlan:
                 f"plan lowers to the single-query {self.kind!r} driver", field="queries")
         limits = p.result_limit if isinstance(p.result_limit, tuple) else (p.result_limit,) * p.queries
         if not multi:
-            fn = _host_search if self.kind == "host" else _scan_search
-            out, trace = fn(
-                carry, chunks, detector=detector, result_limit=int(limits[0]),
-                max_steps=p.max_steps, cohorts=p.cohorts, method=self.method,
-                trace_every=p.trace_every,
-            )
+            args = dict(detector=detector, result_limit=int(limits[0]), max_steps=p.max_steps,
+                        cohorts=p.cohorts, method=self.method, trace_every=p.trace_every)
+            if self.kind == "host":
+                (out, trace), loop = _host_search(carry, chunks, **args), None
+            else:
+                out, trace, loop = _scan_search(carry, chunks, **args)
             step = int(out.step)
             stats = SearchStats(detector_invocations=step, frames_sampled=step,
                                 **_matcher_totals(out))
-            return self._package(out, [trace], stats)
+            return self._package(out, [trace], stats, loop=loop)
         cache = p.execution.cache
         if cache == -1:
             cache = chunks.total_frames
@@ -169,11 +172,11 @@ class LoweredPlan:
             detector_invocations=ms["detector_invocations"], cache_hits=ms["cache_hits"],
             rounds=ms["rounds"], frames_sampled=ms["frames_sampled"], **_matcher_totals(out),
         )
-        return self._package(out, traces, stats, final_cache=ms["final_cache"])
+        return self._package(out, traces, stats, final_cache=ms["final_cache"], loop=ms["loop"])
 
-    def _package(self, out, traces, stats, final_cache=None) -> SearchResult:
+    def _package(self, out, traces, stats, final_cache=None, loop=None) -> SearchResult:
         return SearchResult(
             carry=out, steps=tuple(out.step.reshape(-1).tolist()),
             results=tuple(out.results.reshape(-1).tolist()), traces=traces,
-            stats=stats, plan=self.plan, kind=self.kind, final_cache=final_cache,
+            stats=stats, plan=self.plan, kind=self.kind, final_cache=final_cache, loop=loop,
         )

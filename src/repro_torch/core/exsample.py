@@ -4,14 +4,16 @@ Counterpart of ``repro.core.exsample`` for the single-query drivers:
 
   * ``_host_search`` — the reference loop; reads the carry back every step.
   * ``_scan_search`` — the resident search.  JAX runs it as one
-    ``lax.while_loop`` with a single host sync; here it is a Python loop
-    over rounds whose exit test (results < limit, step < max_steps, some
-    chunk not exhausted) is computed on the device and read back once per
-    round.  That is one sync per round where JAX has one in total; the
-    (step, results) trajectory, the trace and the final carry are the same.
-    The step counter advances by ``cohorts`` every round, so trace
-    checkpoints are decided on the host and their (step, results) pairs
-    are written to a device buffer that is read once at the end.
+    ``lax.while_loop`` with a single host sync.  Here each round is masked
+    by the loop's exit test (results < limit, step < max_steps, some chunk
+    not exhausted), computed on the device: a round past the exit leaves
+    the carry as it was.  ``_resident_loop`` runs such rounds
+    ``ROUNDS_PER_SYNC`` at a time and reads the exit test back once after
+    each batch; on the card it captures one round as a CUDA graph and
+    replays it.  Trace checkpoints are written to a device buffer on
+    boundary crossings, as the reference writes them, and read once at the
+    end.  The (step, results) trajectory, the trace and the final carry
+    are the reference's.
 
 Randomness follows the reference's key order exactly: each round splits
 ``carry.key`` into (key, k_choice, k_det); ``k_choice`` draws the cohort
@@ -29,11 +31,13 @@ folds its own C frames into its own ring and statistics, the Q queries
 together (one batched B3 launch per cohort slot).  Its detector takes a
 batch: ``detector(keys int64[B, 2], frames int64[B]) -> Detections`` with
 a leading ``[B]``, where the reference ``jax.vmap``s a per-frame detector.
-Per query the trajectory equals the query's own ``_scan_search``.
+Per query the trajectory equals the query's own ``_scan_search``.  It
+runs through the same ``_resident_loop``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -43,6 +47,7 @@ from repro_torch.core import prng, thompson
 from repro_torch.core.chunks import ChunkIndex, randomplus_frame
 from repro_torch.core.matcher import MatcherState, broadcast_leading, match_and_update
 from repro_torch.core.state import SamplerState, apply_cross_chunk_decrement, apply_update
+from repro_torch.kernels.iou_match.ref import RING_FIELDS
 from repro_torch.serve.batcher import (
     DetectionCache,
     cache_insert,
@@ -116,15 +121,36 @@ def _process_frame(
     )
 
 
+def _choose_and_process(
+    carry: ExSampleCarry,
+    chunks: ChunkIndex,
+    detector: DetectorFn,
+    cohorts: int,
+    method: str,
+    live: torch.Tensor | None = None,
+) -> ExSampleCarry:
+    """One round of ``cohorts`` frames.  ``live`` (bool[]) is the resident
+    loop's exit test: where it is false the chosen chunk ids become 0
+    before any gather, since once every chunk is exhausted the fused
+    kernel returns -1 (ROADMAP C2); the caller discards that round."""
+    with record_function("exsample.choose"):
+        key, k_choice, k_det = prng.split(carry.key, 3)
+        carry = dataclasses.replace(carry, key=key)
+        chunk_ids = thompson.choose_chunks(k_choice, carry.sampler, cohorts=cohorts, method=method)
+        if live is not None:
+            chunk_ids = torch.where(live, chunk_ids, torch.zeros_like(chunk_ids))
+        # exsample_step uses k_det unsplit
+        det_keys = k_det[None] if cohorts == 1 else prng.split(k_det, cohorts)
+    for i in range(cohorts):
+        carry = _process_frame(carry, chunks, detector, chunk_ids[i], det_keys[i])
+    return carry
+
+
 def exsample_step(
     carry: ExSampleCarry, chunks: ChunkIndex, *, detector: DetectorFn, method: str = "exact"
 ) -> ExSampleCarry:
     """One iteration of Algorithm 1 (choose → process → update)."""
-    with record_function("exsample.choose"):
-        key, k_choice, k_det = prng.split(carry.key, 3)
-        carry = dataclasses.replace(carry, key=key)
-        chunk_id = thompson.choose_chunks(k_choice, carry.sampler, cohorts=1, method=method)[0]
-    return _process_frame(carry, chunks, detector, chunk_id, k_det)
+    return _choose_and_process(carry, chunks, detector, 1, method)
 
 
 def exsample_batch_step(
@@ -137,21 +163,7 @@ def exsample_batch_step(
 ) -> ExSampleCarry:
     """§3.7.1 batched execution: ``cohorts`` Thompson draws pick the round's
     frames, which the matcher folds in order."""
-    with record_function("exsample.choose"):
-        key, k_choice, k_det = prng.split(carry.key, 3)
-        carry = dataclasses.replace(carry, key=key)
-        chunk_ids = thompson.choose_chunks(k_choice, carry.sampler, cohorts=cohorts, method=method)
-        det_keys = prng.split(k_det, cohorts)
-    for i in range(cohorts):
-        carry = _process_frame(carry, chunks, detector, chunk_ids[i], det_keys[i])
-    return carry
-
-
-def _step_fn(detector, cohorts, method):
-    if cohorts == 1:
-        return lambda c, chunks: exsample_step(c, chunks, detector=detector, method=method)
-    return lambda c, chunks: exsample_batch_step(
-        c, chunks, detector=detector, cohorts=cohorts, method=method)
+    return _choose_and_process(carry, chunks, detector, cohorts, method)
 
 
 def _host_search(
@@ -170,18 +182,164 @@ def _host_search(
     Returns (final_carry, trace) with trace a list of (frames, results)
     checkpoints on boundary crossings of ``trace_every`` plus a final one."""
     trace = []
-    step_fn = _step_fn(detector, cohorts, method)
     while (
         int(carry.results) < result_limit
         and int(carry.step) < max_steps
         and not bool(torch.all(carry.sampler.exhausted()))
     ):
         prev_step = int(carry.step)
-        carry = step_fn(carry, chunks)
+        carry = _choose_and_process(carry, chunks, detector, cohorts, method)
         if trace_every and (int(carry.step) // trace_every) > (prev_step // trace_every):
             trace.append((int(carry.step), int(carry.results)))
     trace.append((int(carry.step), int(carry.results)))
     return carry, trace
+
+
+# ---------------------------------------------------------------------------
+# The resident loop: masked rounds, replayed from a CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+# Rounds run between two reads of the exit test.  A round past the exit is
+# masked, so it costs only its device time; a read costs a round trip.
+ROUNDS_PER_SYNC = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopRecord:
+    """How ``_resident_loop`` ran one search."""
+
+    captured: bool          # rounds replayed from a CUDA graph
+    rounds_per_sync: int    # rounds between two reads of the exit test
+    eager_rounds: int       # rounds run op by op (the first; all of them when not captured)
+    replays: int            # graph replays
+    syncs: int              # reads of the exit test
+    capture_s: float        # host seconds to capture the round
+    # kernel launches recorded into the graph, by wrapper: each replay
+    # launches them again, though the wrappers counted them once
+    captured_launches: dict
+
+
+def _carry_leaves(c: ExSampleCarry) -> list[torch.Tensor]:
+    """The carry's tensors a round may change (the sampler's ``frames``
+    never does), in a fixed order."""
+    return [c.sampler.n1, c.sampler.n, *(getattr(c.matcher, f) for f in RING_FIELDS), c.key, c.step, c.results]
+
+
+def _with_leaves(c: ExSampleCarry, leaves) -> ExSampleCarry:
+    n1, n, *rest = leaves
+    ring, (key, step, results) = rest[:len(RING_FIELDS)], rest[len(RING_FIELDS):]
+    return ExSampleCarry(
+        sampler=dataclasses.replace(c.sampler, n1=n1, n=n),
+        matcher=dataclasses.replace(c.matcher, **dict(zip(RING_FIELDS, ring))),
+        key=key, step=step, results=results,
+    )
+
+
+def _select(go: torch.Tensor, new: ExSampleCarry, old: ExSampleCarry) -> ExSampleCarry:
+    """``new`` where ``go`` (bool[]) holds, else ``old``, on every leaf."""
+    return _with_leaves(old, [torch.where(go, a, b) for a, b in zip(_carry_leaves(new), _carry_leaves(old))])
+
+
+def _capture(round_fn: Callable, carry: ExSampleCarry):
+    """One round captured as a CUDA graph that reads ``carry``'s tensors
+    and writes the next carry back into them.  Returns (graph, the kernel
+    launches recorded in it).  A host read inside the round fails the
+    capture, and the error propagates."""
+    from repro_torch.kernels import launch_counts
+
+    static = _carry_leaves(carry)
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        # each leaf of a masked round is a new tensor (``torch.where``, a
+        # scatter's copy, a kernel's output), never a view of an input that
+        # an earlier copy would overwrite
+        for s, o in zip(static, _carry_leaves(round_fn(carry))):
+            s.copy_(o)
+    after = launch_counts()
+    return graph, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _resident_loop(round_fn: Callable, carry: ExSampleCarry, live: Callable, *, capture: bool,
+                   rounds_per_sync: int) -> tuple[ExSampleCarry, LoopRecord]:
+    """Run masked rounds until the exit test fails.
+
+    ``round_fn(carry) -> carry`` is one round masked by the exit test
+    (past the exit it returns the carry unchanged, bit for bit), reading
+    no value back to the host; its trace and counters are updated in
+    place.  ``live(carry)`` is the exit test, a bool tensor.
+
+    The first round runs op by op: it builds the kernels and warms the
+    allocator.  With ``capture`` (on the card, for the samplers that read
+    their key on the device) one round is then captured as a CUDA graph,
+    and every later round is a replay of it; a failed capture raises.
+    Otherwise every round runs op by op, on any device.  Either way the
+    loop runs ``rounds_per_sync`` rounds, reads the exit test once, and
+    repeats until it fails."""
+    if rounds_per_sync < 1:
+        raise ValueError(f"rounds_per_sync must be at least 1, got {rounds_per_sync}")
+    with record_function("exsample.eager_round"):
+        carry = round_fn(carry)
+    eager, replays, syncs, capture_s, graph, recorded = 1, 0, 0, 0.0, None, {}
+    if capture:
+        t0 = time.perf_counter()
+        with record_function("exsample.capture"):
+            graph, recorded = _capture(round_fn, carry)
+        capture_s = time.perf_counter() - t0
+    while True:
+        with record_function("exsample.exit_test"):
+            syncs += 1
+            if not bool(live(carry).any()):   # the one device→host read per batch of rounds
+                break
+        with record_function("exsample.rounds"):
+            for _ in range(rounds_per_sync):
+                if graph is not None:
+                    graph.replay()
+                else:
+                    carry = round_fn(carry)
+        if graph is not None:
+            replays += rounds_per_sync
+        else:
+            eager += rounds_per_sync
+    return carry, LoopRecord(captured=graph is not None, rounds_per_sync=rounds_per_sync,
+                             eager_rounds=eager, replays=replays, syncs=syncs, capture_s=capture_s,
+                             captured_launches=recorded)
+
+
+def _captures(method: str, device: torch.device) -> bool:
+    """Whether the resident loop replays its rounds from a CUDA graph: on
+    the card, except for ``"exact"``, whose sampler seeds a host generator
+    from the key every round (``core.thompson.draw_scores``)."""
+    return device.type == "cuda" and method != "exact"
+
+
+def _trace_cap(max_steps: int, cohorts: int, trace_every: int) -> int:
+    """Rows of the trace: at most one crossing per ``trace_every`` frames,
+    the last round may overshoot ``max_steps`` by ``cohorts - 1``, plus
+    the unconditional final entry."""
+    return (max_steps + cohorts - 1) // trace_every + 1 if trace_every else 1
+
+
+def _trace_write(buf: torch.Tensor, n: torch.Tensor, crossed: torch.Tensor, entry: torch.Tensor) -> None:
+    """In place: each row's ``entry`` (i32[..., 2]) goes to row ``n`` of
+    its buffer (``buf`` i32[..., cap + 1, 2]) where ``crossed``, to the
+    spare row ``cap`` elsewhere and once ``n`` reaches ``cap`` (the
+    reference's dropped write); ``n += crossed``.  No host read: the
+    index is a 1-element tensor, never a 0-dim one."""
+    cap = buf.shape[-2] - 1
+    rows = buf.reshape(-1, 2)
+    base = torch.arange(crossed.numel(), device=buf.device) * (cap + 1)
+    at = torch.where(crossed, torch.clamp_max(n, cap), torch.full_like(n, cap)).reshape(-1)
+    rows.index_copy_(0, base + at.long(), entry.reshape(-1, 2))
+    n.add_(crossed.to(n.dtype))
+
+
+def _trace_final(buf: torch.Tensor, n: torch.Tensor, entry: torch.Tensor) -> None:
+    """The unconditional final checkpoint, at ``min(n, cap - 1)``;
+    ``n = min(n + 1, cap)``.  In place."""
+    cap = buf.shape[-2] - 1
+    _trace_write(buf, torch.clamp_max(n, cap - 1), torch.ones_like(n, dtype=torch.bool), entry)
+    n.copy_(torch.clamp_max(n + 1, cap))
 
 
 def _scan_search(
@@ -194,36 +352,38 @@ def _scan_search(
     cohorts: int = 1,
     method: str = "exact",
     trace_every: int = 0,
+    rounds_per_sync: int = ROUNDS_PER_SYNC,
 ):
     """Resident driver: the host driver's (step, results) trajectory and
-    trace for the same key, with one exit-test sync per round and the trace
-    read once at the end.  Returns (final_carry, trace)."""
+    trace for the same key.  Each round is masked by the exit test on the
+    device; ``_resident_loop`` runs them, replayed from one captured CUDA
+    graph on the card (but for ``method="exact"``), and reads the exit
+    test once every ``rounds_per_sync`` rounds.  The trace, its count and
+    the carry are read once at the end.  Returns (final_carry, trace,
+    LoopRecord)."""
     dev = carry.step.device
-    # worst case one crossing per trace_every frames, the last round may
-    # overshoot max_steps by cohorts-1, plus the unconditional final entry
-    cap = (max_steps + cohorts - 1) // trace_every + 1 if trace_every else 1
+    cap = _trace_cap(max_steps, cohorts, trace_every)
     buf = torch.zeros((cap + 1, 2), dtype=torch.int32, device=dev)  # row cap: dropped writes
-    n = 0
-    step = int(carry.step)        # advances by exactly `cohorts` per round
-    step_fn = _step_fn(detector, cohorts, method)
+    n = torch.zeros((), dtype=torch.int32, device=dev)
     limit = torch.tensor(result_limit, dtype=torch.int32, device=dev)
 
-    def go(c: ExSampleCarry) -> torch.Tensor:
+    def live(c: ExSampleCarry) -> torch.Tensor:
         return (c.results < limit) & (c.step < max_steps) & ~torch.all(c.sampler.exhausted())
 
-    while True:
-        with record_function("exsample.exit_test"):
-            if not bool(go(carry)):   # the one device→host read per round
-                break
-        carry = step_fn(carry, chunks)
-        prev, step = step, step + cohorts
-        if trace_every and step // trace_every > prev // trace_every:
-            buf[min(n, cap)] = torch.stack([carry.step, carry.results])
-            n += 1
-    buf[min(n, cap - 1)] = torch.stack([carry.step, carry.results])
-    n = min(n + 1, cap)
-    trace = [(int(s), int(r)) for s, r in buf[:n].tolist()]
-    return carry, trace
+    def round_fn(c: ExSampleCarry) -> ExSampleCarry:
+        go = live(c)
+        new = _select(go, _choose_and_process(c, chunks, detector, cohorts, method, live=go), c)
+        if trace_every:
+            crossed = new.step // trace_every > c.step // trace_every
+            _trace_write(buf, n, crossed, torch.stack([new.step, new.results]))
+        return new
+
+    carry, loop = _resident_loop(round_fn, carry, live, capture=_captures(method, dev),
+                                 rounds_per_sync=rounds_per_sync)
+    _trace_final(buf, n, torch.stack([carry.step, carry.results]))
+    count, *rows = torch.cat([n.reshape(1), buf.reshape(-1)]).tolist()
+    trace = [(rows[2 * i], rows[2 * i + 1]) for i in range(count)]
+    return carry, trace, loop
 
 
 # ---------------------------------------------------------------------------
@@ -441,23 +601,28 @@ def _multi_search(
     trace_every: int = 0,
     select: SelectFn | None = None,
     cache_frames: int = 0,
+    rounds_per_sync: int = ROUNDS_PER_SYNC,
 ):
     """Q concurrent queries over one repository, one detector call per
     round (DESIGN.md §9); the reference's ``_multi_search``.
 
-    Rounds run until every query is finished.  The live mask
-    (results < limit, step < max_steps, some chunk not exhausted) is
-    computed on the device and read back once per round: that read is the
-    exit test, and the host uses it to advance each query's step count
-    (``cohorts`` per live round) and to decide trace checkpoints, which
-    are written to a device buffer read once at the end (the reference's
-    cap and its unconditional final entry).  ``cache_frames`` slots of
-    ``DetectionCache`` (0 = no cache) are allocated once, before the
-    first round.
+    Rounds run until every query is finished.  Each round computes the
+    live mask (results < limit, step < max_steps, some chunk not
+    exhausted) on the device and masks every query by it; a round with no
+    live query leaves the carry, the cache's slots and the counters as
+    they were.  ``_resident_loop`` runs the rounds, replayed from one
+    captured CUDA graph on the card (but for ``method="exact"``), and
+    reads the exit test once every ``rounds_per_sync`` rounds.  Trace
+    checkpoints are written on the device on each query's boundary
+    crossings (the reference's cap and its unconditional final entry);
+    the traces and the counters are read once at the end.
+    ``cache_frames`` slots of ``DetectionCache`` (0 = no cache) are
+    allocated once, before the first round.
 
     Returns ``(carries', traces, stats)``: per-query traces and the
     accounting ``detector_invocations``, ``cache_hits``, ``rounds``,
-    ``frames_sampled`` (Σ per-query steps) and ``final_cache``.
+    ``frames_sampled`` (Σ per-query steps), ``final_cache`` and ``loop``
+    (the ``LoopRecord``).
     """
     dev = carries.step.device
     q_n = carries.step.shape[0]
@@ -466,47 +631,42 @@ def _multi_search(
     if cache_frames:
         one = detector(carries.key[:1], torch.zeros((1,), dtype=torch.int64, device=dev))
         cache = init_detection_cache(tree_map(lambda x: x[0], one), cache_frames, device=dev)
-    cap = (max_steps + cohorts - 1) // trace_every + 1 if trace_every else 1
-    buf = torch.zeros((q_n, cap, 2), dtype=torch.int32, device=dev)
-    n = [0] * q_n
-    steps = carries.step.tolist()         # host copy, advanced by the live mask
-    calls = torch.zeros((), dtype=torch.int32, device=dev)
-    hits = torch.zeros((), dtype=torch.int32, device=dev)
-    rounds = 0
-    mc = carries
+    cap = _trace_cap(max_steps, cohorts, trace_every)
+    buf = torch.zeros((q_n, cap + 1, 2), dtype=torch.int32, device=dev)  # row cap: dropped writes
+    n = torch.zeros((q_n,), dtype=torch.int32, device=dev)
+    # detector calls, cache hits, rounds with a live query
+    counters = torch.zeros((3,), dtype=torch.int32, device=dev)
 
-    def put(q: int, i: int) -> None:
-        buf[q, i] = torch.stack([mc.step[q], mc.results[q]])
+    def live(mc: ExSampleCarry) -> torch.Tensor:
+        return ((mc.results < limits) & (mc.step < max_steps)
+                & ~torch.all(mc.sampler.exhausted(), dim=-1))
 
-    while True:
-        with record_function("exsample.exit_test"):
-            active = ((mc.results < limits) & (mc.step < max_steps)
-                      & ~torch.all(mc.sampler.exhausted(), dim=-1))
-            live = active.tolist()        # the one device→host read per round
-        if not any(live):
-            break
-        mc, cache, fresh, hit, _ = _multi_round(
+    def round_fn(mc: ExSampleCarry) -> ExSampleCarry:
+        active = live(mc)
+        new, _, fresh, hit, _ = _multi_round(
             mc, cache, chunks, active, detector=detector, select=select,
             cohorts=cohorts, method=method)
-        calls, hits, rounds = calls + fresh, hits + hit, rounds + 1
-        for q in range(q_n):
-            if not live[q]:
-                continue
-            prev, steps[q] = steps[q], steps[q] + cohorts
-            if trace_every and steps[q] // trace_every > prev // trace_every:
-                if n[q] < cap:
-                    put(q, n[q])
-                n[q] += 1
-    for q in range(q_n):
-        put(q, min(n[q], cap - 1))
-        n[q] = min(n[q] + 1, cap)
-    rows = buf.tolist()
-    traces = [[tuple(e) for e in rows[q][: n[q]]] for q in range(q_n)]
+        counters.add_(torch.stack([fresh, hit, active.any().int()]))
+        if trace_every:
+            crossed = new.step // trace_every > mc.step // trace_every
+            _trace_write(buf, n, crossed, torch.stack([new.step, new.results], dim=-1))
+        return new
+
+    mc, loop = _resident_loop(round_fn, carries, live, capture=_captures(method, dev),
+                              rounds_per_sync=rounds_per_sync)
+    _trace_final(buf, n, torch.stack([mc.step, mc.results], dim=-1))
+    flat = torch.cat([counters, n, buf.reshape(-1)]).tolist()
+    (calls, hits, rounds), counts = flat[:3], flat[3:3 + q_n]
+    rows = flat[3 + q_n:]
+    width = 2 * (cap + 1)
+    traces = [[(rows[q * width + 2 * i], rows[q * width + 2 * i + 1]) for i in range(counts[q])]
+              for q in range(q_n)]
     stats = {
-        "detector_invocations": int(calls),
-        "cache_hits": int(hits),
+        "detector_invocations": calls,
+        "cache_hits": hits,
         "rounds": rounds,
         "frames_sampled": int(mc.step.sum()),
         "final_cache": cache,
+        "loop": loop,
     }
     return mc, traces, stats

@@ -625,3 +625,111 @@ def test_reduced_mamba2_on_the_card_equals_the_cpu(card):
         pairs += [(a.conv, b.conv), (a.ssm, b.ssm)]
     for a, b in pairs:
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---- the resident search loop: one captured round, replayed ------------------
+
+SEARCH_RING = 256
+SCAN_PLAN = dict(result_limit=12, max_steps=480, cohorts=8, method="pallas", trace_every=24)
+MULTI_CLASSES = (0, 0, 1, 1)
+MULTI_PLAN = dict(queries=4, result_limit=[12, 12, 6, 12], max_steps=400, cohorts=4, method="pallas",
+                  trace_every=25, execution=dict(queries_axis=True, cache=-1))
+
+
+def _search(device, plan, *, multi=False, feat_thresh=-1.0):
+    """One search of dashcam(0.02) through ``SearchPlan.run`` on ``device``:
+    the scan kind with the class-7 oracle, or the multi kind with one
+    class-agnostic oracle and ``class_select``."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.sim import class_select, generate, oracle_detect
+
+    repo, chunks = generate(dashcam(scale=0.02).repo, device=device)
+    matcher = tcore.init_matcher(max_results=SEARCH_RING, feat_thresh=feat_thresh, device=device)
+    key = prng.PRNGKey(0, device=device)
+    if not multi:
+        carry = tcore.init_carry(tcore.init_state(chunks.length, device=device), matcher, key)
+        return tcore.SearchPlan.from_dict(plan).run(
+            carry, chunks, detector=lambda k, f: oracle_detect(repo, f, query_class=7))
+    keys = torch.stack([prng.fold_in(key, q) for q in range(len(MULTI_CLASSES))])
+    carry = tcore.init_carry_multi(tcore.init_state(chunks.length, device=device), matcher, keys)
+    return tcore.SearchPlan.from_dict(plan).run(
+        carry, chunks, detector=lambda k, f: oracle_detect(repo, f, query_class=None),
+        select=class_select(repo, MULTI_CLASSES))
+
+
+def _assert_same_search(got, want):
+    assert (got.steps, got.results, got.traces) == (want.steps, want.results, want.traces)
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    a, b = got.carry, want.carry
+    pairs = [(getattr(a.sampler, f), getattr(b.sampler, f)) for f in ("n1", "n")]
+    pairs += [(getattr(a.matcher, f), getattr(b.matcher, f)) for f in RING_FIELDS]
+    pairs += [(a.key, b.key), (a.step, b.step), (a.results, b.results)]
+    if want.final_cache is not None:
+        cap = want.final_cache.capacity
+        pairs.append((got.final_cache.tag[:cap], want.final_cache.tag[:cap]))
+    for x, y in pairs:
+        x, y = x.cpu(), y.cpu()
+        assert torch.equal(_bits(x) if x.dtype == torch.float32 else x, _bits(y) if y.dtype == torch.float32 else y)
+
+
+@pytest.mark.parametrize("feat_thresh", [-1.0, 0.9])
+@pytest.mark.parametrize("multi", [False, True])
+def test_the_captured_loop_equals_the_cpu(card, multi, feat_thresh):
+    """Both kinds, both matcher paths: the rounds after the first are
+    replays of one captured graph, and the search equals the CPU's bit for
+    bit; each replay launches what the captured round recorded."""
+    plan = MULTI_PLAN if multi else SCAN_PLAN
+    got = _search(card, plan, multi=multi, feat_thresh=feat_thresh)
+    _assert_same_search(got, _search("cpu", plan, multi=multi, feat_thresh=feat_thresh))
+    loop, cohorts = got.loop, plan["cohorts"]
+    assert loop.captured and loop.eager_rounds == 1 and loop.replays > 0 and loop.capture_s > 0
+    assert loop.replays == loop.rounds_per_sync * (loop.syncs - 1)
+    choose = "thompson_round_batched" if multi else "thompson_round"
+    step = ("iou_matrix" if feat_thresh > -1 else "match_update") + ("_batched" if multi else "")
+    assert loop.captured_launches == {choose: 1, step: cohorts}
+    live = got.stats.rounds if multi else got.steps[0] // cohorts
+    assert live <= loop.eager_rounds + loop.replays <= live + loop.rounds_per_sync
+
+
+def test_a_second_run_recaptures_and_stays_exact(card):
+    """Each ``plan.run`` captures its own round: a second run with another
+    result limit (a different exit, the same shapes) is exact too."""
+    first_plan = dict(SCAN_PLAN, result_limit=3)
+    first = _search(card, first_plan)
+    second = _search(card, SCAN_PLAN)
+    assert first.loop.captured and second.loop.captured and second.loop.capture_s > 0
+    # a round of 8 frames can find more than one result: the exit comes at 3 or more
+    assert first.results[0] >= 3 and second.steps[0] > first.steps[0]
+    _assert_same_search(first, _search("cpu", first_plan))
+    _assert_same_search(second, _search("cpu", SCAN_PLAN))
+
+
+def test_exact_runs_its_rounds_eagerly_on_the_card(card):
+    """``method="exact"`` seeds a host generator from the key every round:
+    its rounds run op by op, never captured."""
+    got = _search(card, dict(SCAN_PLAN, method="exact"))
+    loop = got.loop
+    assert not loop.captured and loop.replays == 0 and loop.captured_launches == {}
+    assert loop.eager_rounds >= got.steps[0] // SCAN_PLAN["cohorts"] and got.results[0] > 0
+    assert got.trace[-1] == (got.steps[0], got.results[0])
+
+
+def test_a_host_read_in_the_round_fails_the_capture(card, monkeypatch):
+    """A value read back to the host inside the round cannot be captured:
+    the run raises, with no fallback to op-by-op rounds.  The card is
+    usable afterwards."""
+    from repro_torch.core import exsample as tex
+
+    process = tex._process_frame
+
+    def reads_the_host(carry, *args):
+        int(carry.step)
+        return process(carry, *args)
+
+    monkeypatch.setattr(tex, "_process_frame", reads_the_host)
+    with pytest.raises(RuntimeError):
+        _search(card, SCAN_PLAN)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    _assert_same_search(_search(card, SCAN_PLAN), _search("cpu", SCAN_PLAN))
