@@ -8,7 +8,12 @@ against the same search on the CPU and require one fused Thompson launch a
 round and one fused matcher launch a frame (batched: a cohort slot), each
 replay counted, then sweep the rounds between two reads of the exit test on
 the bdd scan; then the
-matcher's cosine path (B3's IoU matrix, op by op) the same way; then serve the full-width
+matcher's cosine path (B3's IoU matrix, op by op) the same way; then the bdd scan and
+multi paths with the noisy detector (its draws inside the captured round), each held
+to the CPU, beside the oracle's frames/s and device activities a replayed round; then
+random+ and greedy (the baselines' host loops, one fused matcher launch a frame) held
+to the CPU, with the savings against ExSample; then repro_torch.bench.multiquery's full
+workload against counts pinned from CPU runs of both packages; then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
 through kernel B5) and the full-width mamba2-370m (prefill through kernel
 B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
@@ -63,6 +68,14 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   method="pallas", trace_every=256,
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
+# the baselines (core/baselines.py) at the main path's query: bdd(1.0), class 0, the
+# oracle; random+ held to the CPU over its first BASELINE_CHECK_STEPS frames
+BASELINE_LIMIT, BASELINE_STEPS, BASELINE_CHECK_STEPS = 200, 5000, 2000
+# repro_torch.bench.multiquery's full workload, from CPU runs of the JAX package's
+# benchmarks/bench_multiquery.py multi arm and of the port's run(quick=False), which agree
+MULTIQUERY_PINNED = dict(seq_results=[31, 31, 31, 31, 30, 30, 30, 30], multi_results=[31, 31, 31, 31, 30, 30, 30, 30],
+                         seq_steps=[8192] * 8, multi_steps=[8192] * 8, detector_invocations=9520,
+                         cache_hits=53207, rounds=1024, frames_sampled=65536)
 # rounds between two reads of the exit test, swept on the bdd scan
 ROUNDS_PER_SYNC_SWEEP = (1, 2, 4, 8, 16)
 # the matcher's cosine path (feat_thresh > -1, which no plan, CLI or config
@@ -191,6 +204,14 @@ B6_SHAPES = (
 )
 # B6's five launches, by the word between "ssd_scan_" and "_kernel" in their names
 B6_PHASES = ("acs", "cb", "chunk_state", "state_pass", "chunk_scan")
+
+
+_T0 = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:.0f} s] {title}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1039,19 +1060,28 @@ def read_launches() -> dict:
     return launch_counts()
 
 
+def detector_of(name: str, repo, query_class):
+    """The CLI's ``--detector``: "oracle" or "noisy" (misses, jitter and
+    false positives drawn from the key stream inside the round)."""
+    from repro_torch.sim import noisy_detect, oracle_detect
+
+    if name == "noisy":
+        return lambda key, frame: noisy_detect(key, repo, frame, query_class=query_class)
+    return lambda key, frame: oracle_detect(repo, frame, query_class=query_class)
+
+
 def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.nullcontext,
-               feat_thresh=-1.0):
+               feat_thresh=-1.0, detector="oracle"):
     """One search; ``around()`` is entered around ``plan.run`` alone (set-up
     excluded); ``feat_thresh`` the matcher's (-1: IoU only, every entry
-    point's).  Returns (SearchResult, wall seconds of plan.run, M)."""
+    point's); ``detector`` as :func:`detector_of`.  Returns (SearchResult,
+    wall seconds of plan.run, M)."""
     from repro_torch.core import SearchPlan, init_carry, init_matcher, init_state, prng
-    from repro_torch.sim import generate, oracle_detect
+    from repro_torch.sim import generate
 
     repo, chunks = generate(setup.repo, device=device)
     plan = SearchPlan.from_dict(dict(plan_dict, execution=dict(strategy=kind)))
-
-    def det(key, frame):
-        return oracle_detect(repo, frame, query_class=0)
+    det = detector_of(detector, repo, 0)
 
     carry = init_carry(init_state(chunks.length, device=device),
                        init_matcher(max_results=MATCHER_CAPACITY, feat_thresh=feat_thresh, device=device),
@@ -1069,29 +1099,26 @@ def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.n
 
 def same_search(a, b) -> list[str]:
     """Field names on which two SearchResults differ."""
-    import dataclasses
-
-    import torch
-
     diffs = [f for f in ("steps", "results", "traces") if getattr(a, f) != getattr(b, f)]
     if dataclasses.asdict(a.stats) != dataclasses.asdict(b.stats):
         diffs.append("stats")
-    pairs = [("sampler." + f, getattr(a.carry.sampler, f), getattr(b.carry.sampler, f))
-             for f in ("n1", "n", "frames")]
-    pairs += [("matcher." + f, getattr(a.carry.matcher, f), getattr(b.carry.matcher, f))
-              for f in ("boxes", "feats", "video", "frame", "chunk", "times_seen", "cursor",
-                        "total_inserted")]
-    pairs += [("key", a.carry.key, b.carry.key), ("step", a.carry.step, b.carry.step),
-              ("results", a.carry.results, b.carry.results)]
+    diffs += same_carry(a.carry, b.carry)
     if a.final_cache is not None or b.final_cache is not None:
         if a.final_cache is None or b.final_cache is None:
             return diffs + ["final_cache"]
         cap = a.final_cache.capacity
-        pairs.append(("cache.tag", a.final_cache.tag[:cap], b.final_cache.tag[:cap]))
-    for name, x, y in pairs:
-        if not bits_equal(x.cpu(), y.cpu()):
-            diffs.append(name)
+        if not bits_equal(a.final_cache.tag[:cap].cpu(), b.final_cache.tag[:cap].cpu()):
+            diffs.append("cache.tag")
     return diffs
+
+
+def same_carry(a, b) -> list[str]:
+    """Field names on which two carries differ, bit for bit."""
+    pairs = [("sampler." + f, getattr(a.sampler, f), getattr(b.sampler, f)) for f in ("n1", "n", "frames")]
+    pairs += [("matcher." + f, getattr(a.matcher, f), getattr(b.matcher, f))
+              for f in ("boxes", "feats", "video", "frame", "chunk", "times_seen", "cursor", "total_inserted")]
+    pairs += [("key", a.key, b.key), ("step", a.step, b.step), ("results", a.results, b.results)]
+    return [name for name, x, y in pairs if not bits_equal(x.cpu(), y.cpu())]
 
 
 def loop_launches(name, res, counted: dict, per_round: dict, live_rounds: int) -> dict:
@@ -1122,13 +1149,15 @@ def loop_launches(name, res, counted: dict, per_round: dict, live_rounds: int) -
     return launches
 
 
-def main_path(torch, name, setup) -> dict:
+def main_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
+    """The scan kind at ``MAIN_PLAN`` on the card, held exactly to the CPU;
+    returns (launches, metrics)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cohorts = MAIN_PLAN["cohorts"]
     reset_launches()
-    gpu, gpu_s, m = run_search(torch, setup, MAIN_PLAN, cuda)
+    gpu, gpu_s, m = run_search(torch, setup, MAIN_PLAN, cuda, detector=detector)
     counted = read_launches()
-    ref, cpu_s, _ = run_search(torch, setup, MAIN_PLAN, cpu)
+    ref, cpu_s, _ = run_search(torch, setup, MAIN_PLAN, cpu, detector=detector)
     frames = gpu.steps[0]
     rounds = frames // cohorts
     for (s, r) in gpu.trace:
@@ -1149,7 +1178,8 @@ def main_path(torch, name, setup) -> dict:
     if any(v for k, v in launches.items() if k not in ("thompson_round", "match_update")):
         fail(f"{name}: launches {launches}: only thompson_round and match_update may run")
     print(f"    launches {launches}")
-    return launches
+    return launches, dict(frames=frames, results=gpu.results[0], frames_per_s=frames / gpu_s,
+                          capture_ms=gpu.loop.capture_s * 1e3, wall_s=gpu_s)
 
 
 def rounds_per_sync_sweep(torch, name, setup) -> None:
@@ -1184,7 +1214,7 @@ def rounds_per_sync_sweep(torch, name, setup) -> None:
               f"the exit test, {runs[0][2]} replays; capture {', '.join(f'{r[3] * 1e3:.1f}' for r in runs)} ms")
 
 
-def profile_path(torch, label: str, run, cohorts: int) -> None:
+def profile_path(torch, label: str, run, cohorts: int, warm: bool = True) -> dict:
     """Where the time goes: torch.profiler over one search on the card
     (``run(around) -> (SearchResult, wall seconds)``, profiling only
     ``plan.run``, not the repository's generation).  The first round runs
@@ -1193,11 +1223,15 @@ def profile_path(torch, label: str, run, cohorts: int) -> None:
     the replays' span, from the first batch of replays to the end of the
     last read of the exit test, from CUPTI's kernel records; graph
     launches, kernel launches and syncs are counted per round run; and
-    the ``exsample.*`` layer shares are those of the eager first round."""
+    the ``exsample.*`` layer shares are those of the eager first round.
+    ``warm`` runs the search once first, unprofiled.  Returns the device
+    activities a replayed round, the replays' idle share and the capture's
+    ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run(contextlib.nullcontext)                              # warm
+    if warm:
+        run(contextlib.nullcontext)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     res, wall = run(lambda: prof)
     loop = res.loop
@@ -1259,17 +1293,19 @@ def profile_path(torch, label: str, run, cohorts: int) -> None:
           f"launches and {kernels / replays:.2f} kernel launches a replayed round; exit-test syncs "
           f"{loop_syncs} ({loop_syncs / max(rounds_run, 1):.3f} a round run, {loop.syncs} by the loop's count)")
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
+    return dict(activities_a_round=in_replays / max(loop.replays, 1), idle=1 - busy_span_us / span_us,
+                capture_ms=loop.capture_s * 1e3)
 
 
 # ------------------------------------------------------------ multi path
 
 def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=contextlib.nullcontext,
-              feat_thresh=-1.0):
-    """The multi kind as its CLI runs it: one class-agnostic oracle,
+              feat_thresh=-1.0, detector="oracle"):
+    """The multi kind as its CLI runs it: one class-agnostic detector,
     ``class_select`` per query, keys ``fold_in(PRNGKey(0), q)``.  Returns
     as :func:`run_search` does."""
     from repro_torch.core import SearchPlan, init_carry_multi, init_matcher, init_state, prng
-    from repro_torch.sim import class_select, generate, oracle_detect
+    from repro_torch.sim import class_select, generate
 
     repo, chunks = generate(setup.repo, device=device)
     plan = SearchPlan.from_dict(plan_dict)
@@ -1279,9 +1315,7 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
                                           device=device),
                              torch.stack([prng.fold_in(key, q) for q in range(len(classes))]))
 
-    def det(keys, frames):
-        return oracle_detect(repo, frames, query_class=None)
-
+    det = detector_of(detector, repo, None)
     select = class_select(repo, classes)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1294,16 +1328,16 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
     return res, wall, chunks.num_chunks
 
 
-def multi_path(torch, name, setup) -> dict:
+def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
     """The full-width multi-query search on the card, held exactly to the
     same search on the CPU; the batched fused round must run once per round
     (the z-taking B2 never) and the batched fused matcher step once per
-    cohort slot."""
+    cohort slot.  Returns (launches, metrics)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     reset_launches()
-    gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda)
+    gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda, detector=detector)
     counted = read_launches()
-    ref, cpu_s, _ = run_multi(torch, setup, MULTI_PLAN, cpu)
+    ref, cpu_s, _ = run_multi(torch, setup, MULTI_PLAN, cpu, detector=detector)
     st = gpu.stats
     rounds, frames, cohorts = st.rounds, st.frames_sampled, MULTI_PLAN["cohorts"]
     for trace in gpu.traces:
@@ -1331,7 +1365,9 @@ def multi_path(torch, name, setup) -> dict:
     if any(v for k, v in launches.items() if k not in per_round):
         fail(f"{name}: launches {launches}: only {sorted(per_round)} may run")
     print(f"    launches {launches}")
-    return launches
+    return launches, dict(frames=frames, results=list(gpu.results), frames_per_s=frames / gpu_s,
+                          amortization=st.amortization, invocations=st.detector_invocations,
+                          cache_hits=st.cache_hits, capture_ms=gpu.loop.capture_s * 1e3, wall_s=gpu_s)
 
 
 def cosine_path(torch, name, setup) -> dict:
@@ -1402,6 +1438,128 @@ def per_query_contract(torch, name, setup) -> None:
           f"{list(multi.steps)}, results {list(multi.results)}); multi {multi_s:.2f} s with "
           f"{st.detector_invocations} detector invocations vs {sum(multi.steps)} frames over "
           f"8 solo runs in {solo_s:.2f} s")
+
+
+# ------------------------------------------------- noisy detector, baselines
+
+def one_replay_profile(torch, run) -> dict:
+    """The device work of one replay of the captured round: ``run()`` drives
+    one search, and the profiler (device activities only) is on around its
+    first graph replay alone, so that a round of ~10^5 nodes is parsed once,
+    not with the eager round, the capture and every other replay.  Returns
+    the activities, the replay's device span in ms and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph_cls = torch.cuda.CUDAGraph
+    replay, out = graph_cls.replay, {}
+
+    def first_replay_profiled(graph):
+        if out:
+            return replay(graph)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            replay(graph)
+            torch.cuda.synchronize()
+        ev = device_events(prof)
+        lo, hi = min(e.time_range.start for e in ev), max(e.time_range.end for e in ev)
+        busy = sum(e.time_range.elapsed_us() for e in ev)
+        out.update(activities_a_round=len(ev), replay_ms=(hi - lo) / 1e3, replay_idle=1 - busy / (hi - lo))
+
+    graph_cls.replay = first_replay_profiled
+    try:
+        run()
+    finally:
+        graph_cls.replay = replay
+    if not out:
+        fail("one_replay_profile: the search replayed no round")
+    return out
+
+
+def noisy_vs_oracle(label: str, noisy: dict, oracle: dict, keys) -> None:
+    print(f"  {label}, noisy (oracle): " + "; ".join(
+        f"{k} {noisy[k]:.4f} ({oracle[k]:.4f})" if isinstance(noisy[k], float) else f"{k} {noisy[k]} ({oracle[k]})"
+        for k in keys))
+
+
+def baseline_run(torch, setup, device, policy: str, steps: int):
+    """One baseline on bdd-like ``setup``, class 0, the oracle, the ring at
+    ``MATCHER_CAPACITY``: "randomplus" over the first ``steps`` frames of
+    ``FrameSchedule.randomplus``, or "greedy" up to ``steps`` frames.
+    Returns (carry, trace, wall seconds)."""
+    from repro_torch.core import init_carry, init_matcher, init_state, prng
+    from repro_torch.core.baselines import FrameSchedule, run_greedy, run_schedule
+    from repro_torch.sim import generate
+
+    repo, chunks = generate(setup.repo, device=device)
+    det = detector_of("oracle", repo, 0)
+    carry = init_carry(init_state(chunks.length, device=device),
+                       init_matcher(max_results=MATCHER_CAPACITY, device=device), prng.PRNGKey(0, device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if policy == "greedy":
+        out, trace = run_greedy(carry, chunks, detector=det, result_limit=BASELINE_LIMIT, max_steps=steps,
+                                trace_every=MAIN_PLAN["trace_every"])
+    else:
+        out, trace = run_schedule(carry, chunks, FrameSchedule.randomplus(chunks.total_frames, steps), detector=det,
+                                  result_limit=BASELINE_LIMIT, trace_every=MAIN_PLAN["trace_every"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, trace, time.perf_counter() - t0
+
+
+def baselines_path(torch, name, setup, exsample_frames: int) -> dict:
+    """random+ (``run_schedule``) and greedy (``run_greedy``) on the card at
+    class 0, limit ``BASELINE_LIMIT``, ``BASELINE_STEPS`` frames; each frame
+    one ``match_update`` launch and nothing else.  Card == CPU on the
+    trace and the final carry: greedy's whole run, random+'s first
+    ``BASELINE_CHECK_STEPS`` frames (the CPU's random+ takes several ms a
+    frame at bdd(1.0)).  Prints the frames each took and the savings against
+    ExSample's ``exsample_frames`` (the oracle bdd scan's).  Returns the
+    launches of the two full runs."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    launches, frames = {}, {}
+    for policy in ("randomplus", "greedy"):
+        reset_launches()
+        out, trace, wall = baseline_run(torch, setup, cuda, policy, BASELINE_STEPS)
+        counted = read_launches()
+        steps, results = int(out.step), int(out.results)
+        if counted.get("match_update") != steps or any(v for k, v in counted.items() if k != "match_update"):
+            fail(f"{name} {policy}: launches {counted} in {steps} frames: want match_update once a frame")
+        check = steps if policy == "greedy" else min(steps, BASELINE_CHECK_STEPS)
+        card, card_trace, _ = (out, trace, wall) if check == steps else baseline_run(torch, setup, cuda, policy, check)
+        ref, ref_trace, cpu_s = baseline_run(torch, setup, cpu, policy, check)
+        diffs = same_carry(card, ref) + (["trace"] if card_trace != ref_trace else [])
+        if diffs:
+            fail(f"{name} {policy}: card != CPU over {check} frames on {diffs}")
+        launches[policy], frames[policy] = counted, steps
+        print(f"  {name} {policy}: {results} results in {steps} frames (limit {BASELINE_LIMIT}, budget "
+              f"{BASELINE_STEPS}); card {wall:.2f} s = {steps / wall:.1f} frames/s, {counted['match_update'] / steps:.2f} "
+              f"match_update launches a frame; card == CPU over {check} frames (trace, carry; CPU {cpu_s:.2f} s); "
+              f"trace {card_trace[-3:]}")
+    print(f"  {name}: savings = random+ frames / ExSample frames = {frames['randomplus']} / {exsample_frames} = "
+          f"{frames['randomplus'] / max(exsample_frames, 1):.4f}x; greedy / ExSample "
+          f"{frames['greedy'] / max(exsample_frames, 1):.4f}x")
+    return launches
+
+
+def multiquery_bench_path(torch) -> None:
+    """``repro_torch.bench.multiquery`` at its full workload (dashcam(0.05),
+    Q = 8, budget 8,192) on the card, held to ``MULTIQUERY_PINNED``: counts
+    pinned from CPU runs of the JAX package and of the port, which agree."""
+    from repro_torch.bench import multiquery
+
+    r = multiquery.run(quick=False, device="cuda")
+    got = {k: r[k] for k in MULTIQUERY_PINNED}
+    if got != MULTIQUERY_PINNED:
+        fail(f"bench multiquery: {got} != the pinned {MULTIQUERY_PINNED}")
+    seq_inv = sum(r["seq_steps"])
+    ratio = (seq_inv / sum(r["seq_results"])) / (r["detector_invocations"] / sum(r["multi_results"]))
+    print(f"  bench multiquery (full): counts == the pinned CPU counts {got}; amortization ratio {ratio:.4f}x "
+          f"(gate 2x); sequential arm {seq_inv / r['seq_wall']:.1f} frames/s ({r['seq_wall']:.2f} s), multi arm "
+          f"{r['frames_sampled'] / r['multi_wall']:.1f} frames/s ({r['multi_wall']:.2f} s)")
+    if ratio < 2.0:
+        fail(f"bench multiquery: amortization {ratio:.2f}x below the 2x gate")
 
 
 # ------------------------------------------------------------ serve paths
@@ -1885,22 +2043,23 @@ def main() -> int:
     check_b5_build(built["flash_decode"])
     check_b6_build(built["ssd_scan"])
 
-    print("kernels vs plain versions on the card:")
+    phase("kernels vs plain versions on the card:")
     rows = check_kernels(torch)
-    print("attention kernels vs plain versions on the card, beside SDPA:")
+    phase("attention kernels vs plain versions on the card, beside SDPA:")
     check_attention_kernels(torch, rows)
-    print("SSD chunk scan (B6) vs its plain version on the card:")
+    phase("SSD chunk scan (B6) vs its plain version on the card:")
     check_ssd_kernel(torch, rows)
 
     # warm the card's lazily loaded PyTorch kernels outside the timed runs
     run_search(torch, dashcam(scale=1.0), dict(MAIN_PLAN, max_steps=100), torch.device("cuda"))
-    print("main path: scan search, full size, card vs CPU:")
-    scan_launches = {}
+    phase("main path: scan search, full size, card vs CPU:")
+    scan_launches, scan_metrics = {}, {}
     for name, setup in (("dashcam(scale=1.0)", dashcam(scale=1.0)), ("bdd(scale=1.0)", bdd(scale=1.0))):
-        for k, v in main_path(torch, name, setup).items():
+        launches, scan_metrics[name] = main_path(torch, name, setup)
+        for k, v in launches.items():
             scan_launches[k] = scan_launches.get(k, 0) + v
 
-    print("rounds a read of the exit test (K), the bdd scan on the card:")
+    phase("rounds a read of the exit test (K), the bdd scan on the card:")
     rounds_per_sync_sweep(torch, "bdd(scale=1.0)", bdd(scale=1.0))
 
     host, host_s, _ = run_search(torch, dashcam(scale=1.0), HOST_CHECK_PLAN, torch.device("cuda"), "host")
@@ -1915,23 +2074,45 @@ def main() -> int:
     profile_path(torch, "bdd scan", lambda around: run_search(
         torch, bdd(scale=1.0), profile_plan, torch.device("cuda"), around=around)[:2], MAIN_PLAN["cohorts"])
 
-    print("multi path: Q-axis multi-query search, full width, card vs CPU:")
-    multi_launches = multi_path(torch, "bdd(scale=1.0) multi", bdd(scale=1.0))
+    phase("multi path: Q-axis multi-query search, full width, card vs CPU:")
+    multi_launches, multi_metrics = multi_path(torch, "bdd(scale=1.0) multi", bdd(scale=1.0))
     per_query_contract(torch, "dashcam(scale=1.0) multi", dashcam(scale=1.0))
     multi_profile = dict(MULTI_PLAN, max_steps=500)
-    profile_path(torch, "bdd multi Q=8", lambda around: run_multi(
+    oracle_multi_profile = profile_path(torch, "bdd multi Q=8", lambda around: run_multi(
         torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around)[:2],
         MULTI_PLAN["cohorts"])
-    print("cosine matcher path: dashcam scan and multi with feat_thresh set, card vs CPU:")
+    phase("cosine matcher path: dashcam scan and multi with feat_thresh set, card vs CPU:")
     cosine_launches = cosine_path(torch, "dashcam(scale=1.0)", dashcam(scale=1.0))
+
+    phase("noisy detector: the bdd scan and multi paths, its draws inside the captured round, card vs CPU:")
+    noisy_scan_launches, noisy_scan = main_path(torch, "bdd(scale=1.0) noisy", bdd(scale=1.0), detector="noisy")
+    # one replay each: a replayed noisy round is ~10^5 device activities, too many to parse for every replay
+    replays = {det: one_replay_profile(torch, lambda det=det: run_search(
+        torch, bdd(scale=1.0), profile_plan, torch.device("cuda"), detector=det)) for det in ("noisy", "oracle")}
+    noisy_vs_oracle("bdd scan", dict(noisy_scan, **replays["noisy"]), dict(scan_metrics["bdd(scale=1.0)"], **replays["oracle"]),
+                    ("frames", "results", "frames_per_s", "capture_ms", "activities_a_round", "replay_ms", "replay_idle"))
+    noisy_multi_launches, noisy_multi = multi_path(torch, "bdd(scale=1.0) noisy multi", bdd(scale=1.0),
+                                                   detector="noisy")
+    noisy_multi_profile = profile_path(torch, "bdd noisy multi Q=8", lambda around: run_multi(
+        torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around, detector="noisy")[:2],
+        MULTI_PLAN["cohorts"], warm=False)
+    noisy_vs_oracle("bdd multi", dict(noisy_multi, **noisy_multi_profile), dict(multi_metrics, **oracle_multi_profile),
+                    ("frames", "results", "frames_per_s", "amortization", "invocations", "cache_hits", "capture_ms",
+                     "activities_a_round", "idle"))
+    phase(f"baselines: random+ and greedy, bdd(scale=1.0), class 0, limit {BASELINE_LIMIT}, "
+          f"{BASELINE_STEPS} frames, card vs CPU:")
+    baseline_launches = baselines_path(torch, "bdd(scale=1.0)", bdd(scale=1.0),
+                                       scan_metrics["bdd(scale=1.0)"]["frames"])
+    phase("bench multiquery: the full workload on the card against the pinned CPU counts:")
+    multiquery_bench_path(torch)
 
     serve_launches, serve_metrics = {}, {}
     for family, cell in SERVE_CELLS.items():
-        print(f"serve path ({family}): {cell['arch']}, full width, float32, batch {cell['batch']}, "
+        phase(f"serve path ({family}): {cell['arch']}, full width, float32, batch {cell['batch']}, "
               f"prompt {cell['prompt']}, {cell['tokens']} greedy tokens:")
         serve_launches[family], serve_metrics[family] = serve_path(torch, family)
         reduced_serve(torch, family)
-    print(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
+    phase(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
     bf16_launches, bf16_metrics = bf16_prefill_path(torch)
     reduced_bf16_prefill(torch)
 
@@ -1983,11 +2164,15 @@ def main() -> int:
                                                  "kernels_a_call", "old_ms", "old_call_ms", "state",
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
+    phase("done; the summary lines follow")
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
                                    "cosine_scan": cosine_launches["scan"],
                                    "cosine_multi": cosine_launches["multi"],
+                                   "noisy_scan": noisy_scan_launches, "noisy_multi": noisy_multi_launches,
+                                   "randomplus": baseline_launches["randomplus"],
+                                   "greedy": baseline_launches["greedy"],
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")

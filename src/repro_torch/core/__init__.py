@@ -18,10 +18,16 @@ from repro_torch.core.exsample import (
 )
 from repro_torch.core.matcher import (
     MatcherState,
+    MergeStats,
+    ResultLog,
     broadcast_leading,
+    eviction_mask,
     init_matcher,
     init_matcher_multi,
     match_and_update,
+    merge_matcher,
+    merge_matcher_checked,
+    merge_stats,
     pairwise_iou,
 )
 from repro_torch.core.plan import (
@@ -49,6 +55,7 @@ __all__ = [
     "choose_chunks", "choose_chunks_batched", "gamma_params",
     "MatcherState", "init_matcher", "init_matcher_multi", "broadcast_leading",
     "match_and_update", "pairwise_iou",
+    "MergeStats", "merge_stats", "merge_matcher", "merge_matcher_checked", "ResultLog", "eviction_mask",
     "ExSampleCarry", "init_carry", "exsample_step", "exsample_batch_step",
     "init_carry_multi", "stack_carries", "RoundChoice", "RoundAux",
     "multi_round_choose", "multi_round_process",

@@ -22,11 +22,18 @@ The step goes through ``kernels.iou_match``, chosen on the static
   IoU matrix through ``pairwise_iou`` (B3's ``iou_matrix`` on CUDA).
 The IoU's arithmetic is the same on both paths and devices, and every
 other step is integer or boolean, so the rings' contents are exact.
+
+The merge (``merge_matcher``, ``merge_stats``, ``eviction_mask`` and the
+host-side ``ResultLog``) folds a worker's ring into a shared one, for the
+async runtime; like the step it takes one ring or Q rings with a leading
+``[Q]``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve
@@ -137,3 +144,155 @@ def match_and_update(
 
 def num_results(state: MatcherState) -> torch.Tensor:
     return (state.times_seen > 0).sum(-1).int()
+
+
+# ---------------------------------------------------------------------------
+# The merge of a worker's ring into a shared one (async runtime)
+# ---------------------------------------------------------------------------
+
+class MergeStats(NamedTuple):
+    """Ring-pressure diagnostics of one ``merge_matcher`` application."""
+
+    inserted: torch.Tensor   # i32[] — true insertions src made since snap
+    overflow: torch.Tensor   # bool[] — inserted ≥ capacity: src's ring wrapped
+    #                          and dropped entries the merge cannot recover
+    clobbered: torch.Tensor  # i32[] — live dst entries this merge overwrites
+
+
+def _ring_window(dst: MatcherState, n_new: torch.Tensor) -> torch.Tensor:
+    """bool[..., R]: the slots ``[dst.cursor, dst.cursor + n_new) mod R``."""
+    cap = dst.capacity
+    idx = torch.arange(cap, dtype=torch.int32, device=dst.cursor.device)
+    return (idx - dst.cursor[..., None]) % cap < n_new[..., None]
+
+
+def merge_stats(dst: MatcherState, src: MatcherState, snap: MatcherState) -> MergeStats:
+    """``merge_matcher`` assumes fewer insertions a merge than the capacity:
+    the cursor delta it appends from is taken mod capacity.  The monotone
+    ``total_inserted`` makes the true count observable, so a caller can
+    flag an overflow instead of losing ``capacity·k`` entries."""
+    cap = dst.capacity
+    inserted = src.total_inserted - snap.total_inserted
+    hit = _ring_window(dst, inserted % cap)
+    clobbered = (hit & (dst.times_seen > 0)).sum(-1).int()
+    return MergeStats(inserted=inserted, overflow=inserted >= cap, clobbered=clobbered)
+
+
+def eviction_mask(dst: MatcherState, n_new) -> torch.Tensor:
+    """bool[R]: the live ``dst`` entries that appending ``n_new`` insertions
+    at ``dst.cursor`` overwrites, the entries ``merge_stats.clobbered``
+    counts.  A caller spills them to a ``ResultLog`` before the merge
+    lands, so a fixed ring holds an unbounded result set (while one merge
+    window inserts fewer than R entries)."""
+    n_new = torch.as_tensor(n_new, dtype=torch.int32, device=dst.cursor.device)
+    return _ring_window(dst, torch.clamp_max(n_new, dst.capacity)) & (dst.times_seen > 0)
+
+
+class ResultLog:
+    """Append-only host-side log of results evicted from a device ring.
+
+    The ring is a recent window; entries pushed out by new insertions
+    drain here at merge boundaries (``spill``), so a long search's
+    distinct results are the ring's live entries plus the log.  numpy on
+    the host: spills happen between device calls."""
+
+    _FIELDS = ("boxes", "feats", "video", "frame", "chunk", "times_seen")
+
+    def __init__(self):
+        self._chunks: list[dict] = []
+        self.count = 0
+
+    def __len__(self) -> int:
+        return self.count
+
+    def spill(self, matcher: MatcherState, mask) -> int:
+        """Append ``matcher``'s entries selected by ``mask`` (bool[R]);
+        returns how many were spilled."""
+        mask_np = _host(mask)
+        k = int(mask_np.sum())
+        if k:
+            self._chunks.append({f: _host(getattr(matcher, f))[mask_np] for f in self._FIELDS})
+            self.count += k
+        return k
+
+    def as_arrays(self) -> dict:
+        """The whole log as one dict of concatenated numpy arrays."""
+        if not self._chunks:
+            return {
+                "boxes": np.zeros((0, 4), np.float32),
+                "feats": np.zeros((0, 0), np.float32),
+                "video": np.zeros((0,), np.int32),
+                "frame": np.zeros((0,), np.int32),
+                "chunk": np.zeros((0,), np.int32),
+                "times_seen": np.zeros((0,), np.int32),
+            }
+        return {f: np.concatenate([c[f] for c in self._chunks]) for f in self._FIELDS}
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _ring_axis_index(slot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``slot`` (int[..., R]) shaped to gather or scatter along the ring
+    axis of ``x`` (f[..., R, *rest])."""
+    rest = x.shape[slot.dim():]
+    return slot.long().reshape(slot.shape + (1,) * len(rest)).expand(slot.shape + rest)
+
+
+def merge_matcher(dst: MatcherState, src: MatcherState, snap: MatcherState) -> MatcherState:
+    """Merge a worker's ring ``src`` into the shared ``dst``, both diverged
+    from the snapshot ``snap`` (async runtime).
+
+    * The entries ``src`` inserted since the snapshot (ring slots
+      ``[snap.cursor, src.cursor)``) are appended at ``dst.cursor``: no
+      worker's insertions are lost.
+    * ``times_seen`` bumps to entries that existed at the snapshot are
+      added, only where ``dst`` still holds the snapshot's entry (the same
+      (video, frame) of first sighting): commutative, and exact in the
+      sequential case.
+
+    Two overlapping workers can both insert the same object (the
+    at-most-once-effect tolerance).  Assumes fewer insertions a merge
+    than the capacity, which ``merge_stats`` checks.  Appends past the
+    window go to a spare row that is then cut off (the reference's
+    ``mode="drop"``)."""
+    cap = dst.capacity
+    dev = dst.cursor.device
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    n_new = ((src.cursor - snap.cursor) % cap)[..., None]
+    src_slot = (snap.cursor[..., None] + idx) % cap
+    valid = idx < n_new
+    dst_slot = torch.where(valid, (dst.cursor[..., None] + idx) % cap, torch.full_like(src_slot, cap))
+
+    # additive seen-count bumps for the entries that existed at the snapshot
+    src_inserted = torch.zeros_like(valid).scatter(-1, src_slot.long(), valid)
+    same_as_snap = (dst.video == snap.video) & (dst.frame == snap.frame) & (snap.times_seen > 0)
+    bump = torch.where(same_as_snap & ~src_inserted, src.times_seen - snap.times_seen,
+                       torch.zeros_like(src.times_seen))
+    times = dst.times_seen + bump
+
+    def put(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        ring = dst_slot.dim() - 1
+        spare = torch.zeros(d.shape[:ring] + (1,) + d.shape[ring + 1:], dtype=d.dtype, device=dev)
+        out = torch.cat([d, spare], dim=ring)
+        moved = torch.gather(s, ring, _ring_axis_index(src_slot, s))
+        return out.scatter(ring, _ring_axis_index(dst_slot, out), moved).narrow(ring, 0, cap).contiguous()
+
+    return dataclasses.replace(
+        dst,
+        boxes=put(dst.boxes, src.boxes),
+        feats=put(dst.feats, src.feats),
+        video=put(dst.video, src.video),
+        frame=put(dst.frame, src.frame),
+        chunk=put(dst.chunk, src.chunk),
+        times_seen=put(times, src.times_seen),
+        cursor=(dst.cursor + n_new[..., 0]) % cap,
+        total_inserted=dst.total_inserted + (src.total_inserted - snap.total_inserted),
+    )
+
+
+def merge_matcher_checked(dst: MatcherState, src: MatcherState,
+                          snap: MatcherState) -> tuple[MatcherState, MergeStats]:
+    """``merge_matcher`` and its ``MergeStats``."""
+    return merge_matcher(dst, src, snap), merge_stats(dst, src, snap)

@@ -4,7 +4,7 @@ The reference drivers draw every random number through ``jax.random``
 (``split`` → ``normal``); the port reproduces those draws so that the
 same key gives the same chunk choices.  A key is an int64 tensor of shape
 ``[..., 2]`` holding two uint32 words; ``split``, ``fold_in``,
-``random_bits``, ``uniform`` and ``normal`` take a batch of keys
+``random_bits``, ``uniform``, ``bernoulli`` and ``normal`` take a batch of keys
 (``[Q, 2]``) as well as one, and row q of a batched call equals the call
 on ``key[q]`` bit for bit (threefry is elementwise, so the key words
 broadcast against the counters, as ``jax.vmap`` does).  Every word is kept in an int64 and
@@ -18,6 +18,7 @@ Counterparts in JAX 0.9 (``jax/_src/prng.py``, ``jax/_src/random.py``):
 * ``fold_in``       ← ``threefry_fold_in``
 * ``random_bits``   ← ``_threefry_random_bits_partitionable`` (32-bit)
 * ``uniform``       ← ``_uniform``
+* ``bernoulli``     ← ``_bernoulli`` (``mode="low"``)
 * ``normal``        ← ``_normal_real``: ``√2 · erfinv(u)`` with XLA's
   float32 ErfInv polynomial and XLA CPU's own ``log1p``, each evaluated
   with the fused multiply-adds XLA's backend contracts (``numerics``).
@@ -211,9 +212,18 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, res)
 
 
+def bernoulli(key, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` (its default ``mode="low"``): bool, the
+    float32 uniform below ``p`` rounded to float32."""
+    return uniform(key, shape) < _f32(p)
+
+
+# the least uniform of ``jax.random.normal``: nextafter(-1, 0) in float32
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
 def normal(key, shape) -> torch.Tensor:
     """``jax.random.normal`` (float32): ``√2 · erfinv(u)``, u uniform on
-    (nextafter(−1, 0), 1).  Keys [..., 2] give ``key.shape[:-1] + shape``."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
+    (NORMAL_LO, 1).  Keys [..., 2] give ``key.shape[:-1] + shape``."""
+    u = uniform(key, shape, NORMAL_LO, 1.0)
     return erfinv_f32(u) * _f32(math.sqrt(2.0))

@@ -15,10 +15,14 @@ the Thompson method and the detection cache go inside it, as in the
 reference CLI.  Without it the plan is a single query built from
 ``--limit``/``--max-steps``/``--cohorts``.  A plan that lowers to ``multi``
 runs one query per class in ``--queries`` (default ``0..Q-1``) over one
-class-agnostic oracle, each query keeping its own class's detections,
-with the keys ``fold_in(PRNGKey(seed), q)``.  ``--device`` defaults to
-``cuda`` and fails without a card; ``--device cpu`` runs the plain
-PyTorch versions of the kernels.
+class-agnostic detector, each query keeping its own class's detections,
+with the keys ``fold_in(PRNGKey(seed), q)``.  ``--detector noisy`` adds
+misses, box jitter and false positives (``sim.noisy_detect``).
+``--baseline`` then runs random+ over the same repository, up to the
+plan's frame budget, and prints the savings (random+ frames / ExSample
+frames); not for ``multi``.  ``--device`` defaults to ``cuda`` and fails
+without a card; ``--device cpu`` runs the plain PyTorch versions of the
+kernels.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ from repro_torch.core import (
     init_state,
     prng,
 )
+from repro_torch.core.baselines import FrameSchedule, run_schedule
 from repro_torch.device import resolve
-from repro_torch.sim import class_select, generate, oracle_detect
+from repro_torch.sim import class_select, generate, noisy_detect, oracle_detect
 from repro_torch.sim.costmodel import CostRates, sampling_cost
 
 MATCHER_CAPACITY = 8192
@@ -67,6 +72,8 @@ def main(argv=None) -> None:
     ap.add_argument("--limit", type=int, default=50)
     ap.add_argument("--cohorts", type=int, default=16)
     ap.add_argument("--max-steps", type=int, default=50_000)
+    ap.add_argument("--detector", default="oracle", choices=["oracle", "noisy"])
+    ap.add_argument("--baseline", action="store_true", help="also run random+ for comparison")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -85,22 +92,24 @@ def main(argv=None) -> None:
     sampler = init_state(chunks.length, device=device)
     matcher = init_matcher(max_results=MATCHER_CAPACITY, device=device)
     select = None
-    if lowered.kind == "multi":
+    multi = lowered.kind == "multi"
+    query_class = None if multi else args.query_class
+    if args.detector == "oracle":
+        def det(key, frame):
+            return oracle_detect(repo, frame, query_class=query_class)
+    else:
+        def det(key, frame):
+            return noisy_detect(key, repo, frame, query_class=query_class)
+
+    if multi:
         classes = args.queries if args.queries else list(range(plan.queries))
         if len(classes) != plan.queries:
             raise SystemExit(f"--queries lists {len(classes)} classes for a {plan.queries}-query plan")
-
-        def det(keys, frames):
-            return oracle_detect(repo, frames, query_class=None)
-
         select = class_select(repo, classes)
         key = prng.PRNGKey(args.seed, device=device)
         carry = init_carry_multi(sampler, matcher,
                                  torch.stack([prng.fold_in(key, q) for q in range(plan.queries)]))
     else:
-        def det(key, frame):
-            return oracle_detect(repo, frame, query_class=args.query_class)
-
         carry = init_carry(sampler, matcher, prng.PRNGKey(args.seed, device=device))
     t0 = time.perf_counter()
     res = lowered.run(carry, chunks, detector=det, select=select)
@@ -117,6 +126,16 @@ def main(argv=None) -> None:
                  f"{st.amortization:.2f}x amortization, {st.rounds} rounds)")
     print(line + f" / est. {cost.total_s:.0f} gpu·s (driver wall {wall:.1f}s, "
           f"{st.frames_sampled / max(wall, 1e-9):.0f} frames/s)")
+    if args.baseline and not multi:
+        base = init_carry(init_state(chunks.length, device=device),
+                          init_matcher(max_results=MATCHER_CAPACITY, device=device),
+                          prng.PRNGKey(args.seed, device=device))
+        rp, _ = run_schedule(base, chunks, FrameSchedule.randomplus(chunks.total_frames, plan.max_steps),
+                             detector=det, result_limit=plan.result_limit
+                             if isinstance(plan.result_limit, int) else args.limit)
+        rp_results, rp_steps = int(rp.results), int(rp.step)
+        print(f"random+: {rp_results} results / {rp_steps:,} frames "
+              f"→ savings {rp_steps / max(st.frames_sampled, 1):.2f}x")
 
 
 if __name__ == "__main__":

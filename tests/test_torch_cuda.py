@@ -636,26 +636,31 @@ MULTI_PLAN = dict(queries=4, result_limit=[12, 12, 6, 12], max_steps=400, cohort
                   trace_every=25, execution=dict(queries_axis=True, cache=-1))
 
 
-def _search(device, plan, *, multi=False, feat_thresh=-1.0):
+def _search(device, plan, *, multi=False, feat_thresh=-1.0, noisy=False):
     """One search of dashcam(0.02) through ``SearchPlan.run`` on ``device``:
-    the scan kind with the class-7 oracle, or the multi kind with one
-    class-agnostic oracle and ``class_select``."""
+    the scan kind with the class-7 detector, or the multi kind with one
+    class-agnostic detector and ``class_select``; the oracle, or with
+    ``noisy`` the noisy detector."""
     from repro_torch import core as tcore
     from repro_torch.configs.exsample_paper import dashcam
-    from repro_torch.sim import class_select, generate, oracle_detect
+    from repro_torch.sim import class_select, generate, noisy_detect, oracle_detect
 
     repo, chunks = generate(dashcam(scale=0.02).repo, device=device)
     matcher = tcore.init_matcher(max_results=SEARCH_RING, feat_thresh=feat_thresh, device=device)
     key = prng.PRNGKey(0, device=device)
+    query_class = None if multi else 7
+
+    def det(k, f):
+        if noisy:
+            return noisy_detect(k, repo, f, query_class=query_class)
+        return oracle_detect(repo, f, query_class=query_class)
+
     if not multi:
         carry = tcore.init_carry(tcore.init_state(chunks.length, device=device), matcher, key)
-        return tcore.SearchPlan.from_dict(plan).run(
-            carry, chunks, detector=lambda k, f: oracle_detect(repo, f, query_class=7))
+        return tcore.SearchPlan.from_dict(plan).run(carry, chunks, detector=det)
     keys = torch.stack([prng.fold_in(key, q) for q in range(len(MULTI_CLASSES))])
     carry = tcore.init_carry_multi(tcore.init_state(chunks.length, device=device), matcher, keys)
-    return tcore.SearchPlan.from_dict(plan).run(
-        carry, chunks, detector=lambda k, f: oracle_detect(repo, f, query_class=None),
-        select=class_select(repo, MULTI_CLASSES))
+    return tcore.SearchPlan.from_dict(plan).run(carry, chunks, detector=det, select=class_select(repo, MULTI_CLASSES))
 
 
 def _assert_same_search(got, want):
@@ -733,3 +738,72 @@ def test_a_host_read_in_the_round_fails_the_capture(card, monkeypatch):
     monkeypatch.undo()
     torch.cuda.synchronize()
     _assert_same_search(_search(card, SCAN_PLAN), _search("cpu", SCAN_PLAN))
+
+
+# ---- the noisy detector and the baselines ---------------------------------------
+
+@pytest.mark.parametrize("p", [0.0, 0.05, 0.1, 0.5, 1.0])
+def test_bernoulli_on_the_card_equals_the_cpu(card, p):
+    keys = torch.from_numpy(np.random.default_rng(1).integers(0, 2**32, (64, 2), dtype=np.uint64).astype(np.int64))
+    got = prng.bernoulli(keys.to(card), p, (3000,))
+    want = prng.bernoulli(keys, p, (3000,))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(prng.bernoulli(keys[3].to(card), p, (3000,)).cpu(), want[3])
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_the_noisy_search_captured_equals_its_eager_run(card, multi, monkeypatch):
+    """The noisy detector draws its misses, jitter and false positives from
+    the key stream inside the captured round: the replayed search equals
+    the same search run op by op on the card, and on the CPU."""
+    from repro_torch.core import exsample as tex
+
+    plan = dict(MULTI_PLAN if multi else SCAN_PLAN, result_limit=40 if not multi else [12, 12, 6, 12])
+    got = _search(card, plan, multi=multi, noisy=True)
+    assert got.loop.captured and got.loop.replays > 0
+    choose = "thompson_round_batched" if multi else "thompson_round"
+    step = "match_update_batched" if multi else "match_update"
+    assert got.loop.captured_launches == {choose: 1, step: plan["cohorts"]}
+    monkeypatch.setattr(tex, "_captures", lambda method, device: False)
+    eager = _search(card, plan, multi=multi, noisy=True)
+    monkeypatch.undo()
+    assert not eager.loop.captured and eager.loop.replays == 0
+    _assert_same_search(got, eager)
+    _assert_same_search(got, _search("cpu", plan, multi=multi, noisy=True))
+    assert min(got.results) > 0
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_randomplus_and_greedy_on_the_card_equal_the_cpu(card, noisy):
+    """The baselines' host loops: each frame one ``match_update`` launch,
+    the (step, results) trace and the final carry as on the CPU."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.core.baselines import FrameSchedule, run_greedy, run_schedule
+    from repro_torch.sim import generate, noisy_detect, oracle_detect
+
+    def run(device, policy):
+        repo, chunks = generate(dashcam(scale=0.02).repo, device=device)
+        carry = tcore.init_carry(tcore.init_state(chunks.length, device=device),
+                                 tcore.init_matcher(max_results=SEARCH_RING, device=device), prng.PRNGKey(0, device=device))
+
+        def det(k, f):
+            return noisy_detect(k, repo, f, query_class=7) if noisy else oracle_detect(repo, f, query_class=7)
+
+        if policy == "greedy":
+            return run_greedy(carry, chunks, detector=det, result_limit=30, max_steps=200, trace_every=8)
+        return run_schedule(carry, chunks, FrameSchedule.randomplus(chunks.total_frames, 200), detector=det,
+                            result_limit=30, trace_every=8)
+
+    for policy in ("randomplus", "greedy"):
+        before = match_update.launches
+        got, got_trace = run(card, policy)
+        assert match_update.launches - before == int(got.step)
+        want, want_trace = run("cpu", policy)
+        assert got_trace == want_trace and len(got_trace) >= 2
+        pairs = [(getattr(got.sampler, f), getattr(want.sampler, f)) for f in ("n1", "n")]
+        pairs += [(getattr(got.matcher, f), getattr(want.matcher, f)) for f in RING_FIELDS]
+        pairs += [(got.key, want.key), (got.step, want.step), (got.results, want.results)]
+        for x, y in pairs:
+            x = x.cpu()
+            assert torch.equal(_bits(x) if x.dtype == torch.float32 else x, _bits(y) if y.dtype == torch.float32 else y)

@@ -41,7 +41,7 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
-    assert {"core", "kernels", "serve", "sim", "launch", "models", "configs"} <= scanned
+    assert {"core", "kernels", "serve", "sim", "launch", "models", "configs", "bench"} <= scanned
     modules = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/ref.py"} <= modules
@@ -64,6 +64,7 @@ def test_entry_points_default_to_the_card():
     """Without a card, the default device is an error, not a CPU run."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from repro_torch.bench import multiquery, savings
     from repro_torch.device import resolve
     from repro_torch.launch import search, serve
 
@@ -74,6 +75,12 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         search.main(["--scale", "0.02", "--queries", "0", "1", "--plan",
                      '{"queries": 2, "max_steps": 8, "execution": {"queries_axis": true}}'])
+    with pytest.raises(RuntimeError, match="cuda"):
+        search.main(["--scale", "0.02", "--max-steps", "8", "--detector", "noisy", "--baseline"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        savings.main(["--quick", "--scale", "0.02"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        multiquery.main(["--quick"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "phi3-medium-14b", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
