@@ -13,7 +13,12 @@ multi paths with the noisy detector (its draws inside the captured round), each 
 to the CPU, beside the oracle's frames/s and device activities a replayed round; then
 random+ and greedy (the baselines' host loops, one fused matcher launch a frame) held
 to the CPU, with the savings against ExSample; then repro_torch.bench.multiquery's full
-workload against counts pinned from CPU runs of both packages; then serve the full-width
+workload against counts pinned from CPU runs of both packages; then the repository index on
+the bdd multi path (cold equal to no index, warm with no detector call and one captured graph,
+a prior-warmed scan card against CPU), the async_multi kind (8 queries, 4 worker threads on
+their own streams, each query equal to the multi run), the async kind (its merge invariants,
+and a synchronous drive card against CPU) and repro_torch.bench.async_compose --quick (its 2x
+gate); then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
 through kernel B5) and the full-width mamba2-370m (prefill through kernel
 B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
@@ -78,6 +83,13 @@ MULTIQUERY_PINNED = dict(seq_results=[31, 31, 31, 31, 30, 30, 30, 30], multi_res
                          cache_hits=53207, rounds=1024, frames_sampled=65536)
 # rounds between two reads of the exit test, swept on the bdd scan
 ROUNDS_PER_SYNC_SWEEP = (1, 2, 4, 8, 16)
+# the async runtime's worker threads, each on its own CUDA stream
+ASYNC_WORKERS = 4
+# the async kind's synchronous drive, card against CPU: cohorts issued, processed and merged in one order
+ASYNC_SYNC_COHORTS = 4
+# the scan whose Thompson prior the repository index warms (prior_weight > 0), card against CPU
+PRIOR_SCAN_PLAN = dict(MAIN_PLAN, max_steps=1000)
+PRIOR_WEIGHT = 50.0
 # the matcher's cosine path (feat_thresh > -1, which no plan, CLI or config
 # sets): op by op, with B3's iou_matrix for its IoU; driven on dashcam, card
 # against CPU, so that the kernel it keeps is launched and checked
@@ -1074,13 +1086,14 @@ def run_search(torch, setup, plan_dict, device, kind="scan", around=contextlib.n
                feat_thresh=-1.0, detector="oracle"):
     """One search; ``around()`` is entered around ``plan.run`` alone (set-up
     excluded); ``feat_thresh`` the matcher's (-1: IoU only, every entry
-    point's); ``detector`` as :func:`detector_of`.  Returns (SearchResult,
-    wall seconds of plan.run, M)."""
+    point's); ``detector`` as :func:`detector_of`; the plan's execution
+    (a repository index) is kept, its strategy set to ``kind``.  Returns
+    (SearchResult, wall seconds of plan.run, M)."""
     from repro_torch.core import SearchPlan, init_carry, init_matcher, init_state, prng
     from repro_torch.sim import generate
 
     repo, chunks = generate(setup.repo, device=device)
-    plan = SearchPlan.from_dict(dict(plan_dict, execution=dict(strategy=kind)))
+    plan = SearchPlan.from_dict(dict(plan_dict, execution=dict(plan_dict.get("execution", {}), strategy=kind)))
     det = detector_of(detector, repo, 0)
 
     carry = init_carry(init_state(chunks.length, device=device),
@@ -1328,11 +1341,11 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
     return res, wall, chunks.num_chunks
 
 
-def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
+def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict, object]:
     """The full-width multi-query search on the card, held exactly to the
     same search on the CPU; the batched fused round must run once per round
     (the z-taking B2 never) and the batched fused matcher step once per
-    cohort slot.  Returns (launches, metrics)."""
+    cohort slot.  Returns (launches, metrics, the card's SearchResult)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     reset_launches()
     gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda, detector=detector)
@@ -1367,7 +1380,7 @@ def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
     print(f"    launches {launches}")
     return launches, dict(frames=frames, results=list(gpu.results), frames_per_s=frames / gpu_s,
                           amortization=st.amortization, invocations=st.detector_invocations,
-                          cache_hits=st.cache_hits, capture_ms=gpu.loop.capture_s * 1e3, wall_s=gpu_s)
+                          cache_hits=st.cache_hits, capture_ms=gpu.loop.capture_s * 1e3, wall_s=gpu_s), gpu
 
 
 def cosine_path(torch, name, setup) -> dict:
@@ -1560,6 +1573,282 @@ def multiquery_bench_path(torch) -> None:
           f"{r['frames_sampled'] / r['multi_wall']:.1f} frames/s ({r['multi_wall']:.2f} s)")
     if ratio < 2.0:
         fail(f"bench multiquery: amortization {ratio:.2f}x below the 2x gate")
+
+
+# ------------------------------------------- repository index, async runtime
+
+def index_path(torch, name, setup, no_index) -> dict:
+    """``MULTI_PLAN`` bound to a repository index in a fresh directory, on
+    the card.  The cold run must equal ``no_index`` (the phase's card run,
+    held to the CPU) on every field but the persisted count; the warm run
+    over its snapshot must call the detector on no frame, every cache hit
+    an index hit, with the same trajectories, every round after the first
+    a replay of one captured graph.  The write-back and the preload are
+    timed alone.  Then ``PRIOR_SCAN_PLAN``'s scan, its Thompson prior
+    warmed from the snapshot's evidence (read-only), card against CPU."""
+    import tempfile
+
+    from repro_torch.index import RepositoryIndex
+    from repro_torch.serve.batcher import tree_map
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    per_round = {"thompson_round_batched": 1, "match_update_batched": MULTI_PLAN["cohorts"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = dict(MULTI_PLAN, execution=dict(MULTI_PLAN["execution"], index=dict(path=tmp)))
+        cold, cold_s, _ = run_multi(torch, setup, plan, cuda)
+        persisted = cold.stats.persisted_detections
+        diffs = same_search(cold, no_index)
+        if [d for d in diffs if d != "stats"] or \
+                cold.stats != dataclasses.replace(no_index.stats, persisted_detections=persisted):
+            fail(f"{name}, cold index: != the run without an index on {diffs} ({cold.stats} vs {no_index.stats})")
+        if persisted != no_index.stats.detector_invocations:
+            fail(f"{name}, cold index: persisted {persisted} of {no_index.stats.detector_invocations} detections")
+        snapshot_bytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        cache = cold.final_cache
+        cap = cache.capacity
+        t0 = time.perf_counter()
+        fresh = RepositoryIndex()
+        if fresh.publish_cache(cache) != persisted:
+            fail(f"{name}: publish_cache persisted another count than the run")
+        publish_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp2:
+            t0 = time.perf_counter()
+            fresh.save(tmp2)
+            save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx = RepositoryIndex(tmp)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm_cache, warm_frames = idx.warm(tree_map(lambda x: x[0], cache.store), cap)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if len(warm_frames) != persisted or not bits_equal(warm_cache.tag[:cap].cpu(), cache.tag[:cap].cpu()) or \
+                not all(bits_equal(a[:cap].cpu(), b[:cap].cpu()) for a, b in zip(warm_cache.store, cache.store)):
+            fail(f"{name}: the preload differs from the cold run's final cache")
+        del warm_cache, cache, fresh
+        print(f"  {name}, cold index: == the run without an index (steps, results, traces, stats, samplers, rings, "
+              f"keys, cache tag); {persisted} detections persisted, snapshot {snapshot_bytes} bytes; "
+              f"publish_cache {publish_s:.3f} s, save {save_s:.3f} s, load {load_s:.3f} s, warm "
+              f"{warm_s:.3f} s ({cap} slots); run {cold_s:.2f} s (no index {no_index.stats.frames_sampled} frames)")
+        reset_launches()
+        warm, warm_run_s, _ = run_multi(torch, setup, plan, cuda)
+        counted = read_launches()
+        st = warm.stats
+        diffs = same_search(warm, no_index)
+        if [d for d in diffs if d != "stats"]:
+            fail(f"{name}, warm index: trajectories differ from the cold run on {diffs}")
+        if st.detector_invocations != 0 or st.index_hits != st.cache_hits or \
+                st.cache_hits != no_index.stats.detector_invocations + no_index.stats.cache_hits or \
+                st.persisted_detections != 0:
+            fail(f"{name}, warm index: {st}")
+        launches = loop_launches(f"{name}, warm index", warm, counted, per_round, st.rounds)
+        if any(v for k, v in launches.items() if k not in per_round):
+            fail(f"{name}, warm index: launches {launches}: only {sorted(per_round)} may run")
+        print(f"  {name}, warm index: 0 detector calls, {st.index_hits} index hits == cache hits; trajectories "
+              f"== the cold run; {st.frames_sampled / warm_run_s:.1f} frames/s ({warm_run_s:.2f} s, the preload "
+              f"included)")
+        print(f"    launches {launches}")
+        scan_plan = dict(PRIOR_SCAN_PLAN, execution=dict(index=dict(path=tmp, prior_weight=PRIOR_WEIGHT,
+                                                                    read_only=True)))
+        gscan, gscan_s, _ = run_search(torch, setup, scan_plan, cuda)
+        cscan, cscan_s, _ = run_search(torch, setup, scan_plan, cpu)
+    diffs = same_search(gscan, cscan)
+    if diffs:
+        fail(f"{name}, warm-started scan: card != CPU on {diffs}")
+    if gscan.stats.warm_rounds_saved <= 0:
+        fail(f"{name}, warm-started scan: no prior was injected ({gscan.stats})")
+    print(f"  bdd(scale=1.0) scan, prior_weight {PRIOR_WEIGHT} from the snapshot: {gscan.results[0]} results in "
+          f"{gscan.steps[0]} frames, {gscan.stats.warm_rounds_saved} warm rounds saved; card == CPU exactly "
+          f"(card {gscan_s:.2f} s, CPU {cscan_s:.2f} s)")
+    return dict(launches=launches, persisted_detections=persisted, snapshot_bytes=snapshot_bytes,
+                publish_cache_s=publish_s, save_s=save_s, load_s=load_s, warm_s=warm_s, cold_run_s=cold_s,
+                warm_run_s=warm_run_s, warm_frames_per_s=st.frames_sampled / warm_run_s,
+                prior_scan=dict(frames=gscan.steps[0], results=gscan.results[0],
+                                warm_rounds_saved=gscan.stats.warm_rounds_saved))
+
+
+def async_multi_path(torch, name, setup, want, multi_metrics) -> tuple[dict, dict]:
+    """``AsyncMultiSearchDriver`` at ``MULTI_PLAN``'s queries, limits,
+    budget, cohorts and cache, ``ASYNC_WORKERS`` worker threads each on its
+    own stream, ``method="pallas"``: every query must equal ``want``, the
+    card's multi run of the plan, on every per-query field (its metrics
+    ``multi_metrics``), the counters must obey
+    the scheduler's invariants, the batched fused round must run once a
+    slot batch and the batched fused step once a cohort slot of every
+    processed batch.  Returns (launches, metrics)."""
+    from repro_torch.core import init_carry_multi, init_matcher, init_state, prng
+    from repro_torch.core.runtime import AsyncMultiSearchDriver
+    from repro_torch.core.runtime import _lane as lane
+    from repro_torch.sim import class_select, generate
+
+    cuda = torch.device("cuda")
+    cohorts = MULTI_PLAN["cohorts"]
+    repo, chunks = generate(setup.repo, device=cuda)
+    key = prng.PRNGKey(0, device=cuda)
+    carry = init_carry_multi(init_state(chunks.length, device=cuda),
+                             init_matcher(max_results=MATCHER_CAPACITY, device=cuda),
+                             torch.stack([prng.fold_in(key, q) for q in range(len(MULTI_CLASSES))]))
+    driver = AsyncMultiSearchDriver(
+        carry, chunks, detector_of("oracle", repo, None), cohorts=cohorts, num_workers=ASYNC_WORKERS,
+        result_limits=MULTI_PLAN["result_limit"], max_steps=MULTI_PLAN["max_steps"], method="pallas",
+        select=class_select(repo, MULTI_CLASSES), cache_frames=chunks.total_frames,
+        trace_every=MULTI_PLAN["trace_every"])
+    processed, process = [], driver._process_batch
+
+    def counted_batch(wid, batch):
+        res = process(wid, batch)
+        processed.append(batch.batch_id)
+        return res
+
+    driver._process_batch = counted_batch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = driver.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = driver.stats
+    for q in range(len(MULTI_CLASSES)):
+        diffs = same_carry(lane(out, q), lane(want.carry, q))
+        if diffs or driver.traces[q] != want.traces[q]:
+            fail(f"{name}: query {q} != the multi run on {diffs or ['trace']}")
+    frames = int(out.step.sum())
+    rounds = sum(r.rounds for r in driver.rows)
+    bad = []
+    if st["merges"] != st["slots"] or st["duplicate_drops"] > st["reissues"]:
+        bad.append("merges")
+    if rounds != st["lanes_issued"] or frames != cohorts * rounds or frames != sum(want.steps):
+        bad.append("rounds/frames")
+    if sum(r.fresh_calls for r in driver.rows) != st["detector_invocations"] or \
+            sum(r.cache_hits for r in driver.rows) != st["cache_hits"] or st["detector_invocations"] > frames:
+        bad.append("detector accounting")
+    if st["spilled"] or st["index_hits"] or st["merge_high_water"] >= MATCHER_CAPACITY:
+        bad.append("ring/index")
+    if launches["thompson_round_batched"] != st["slots"] or \
+            launches["match_update_batched"] != cohorts * len(processed) or \
+            any(v for k, v in launches.items() if k not in ("thompson_round_batched", "match_update_batched")):
+        bad.append(f"launches {launches}")
+    if bad:
+        fail(f"{name}: invariants broken: {bad}; stats {st}")
+    print(f"  {name}: each query == the card's multi run (steps {list(out.step.tolist())}, results "
+          f"{list(out.results.tolist())}, traces, samplers, rings, keys); {st['slots']} slot batches of "
+          f"{driver.slots_per_batch} lanes, {st['reissues']} reissues, {st['duplicate_drops']} duplicates dropped; "
+          f"{st['detector_invocations']} detector calls, {st['cache_hits']} cache hits over {frames} frames")
+    print(f"    card {frames / wall:.1f} frames/s ({wall:.2f} s; the multi kind's replayed rounds: "
+          f"{multi_metrics['frames_per_s']:.1f}); launches {launches}: "
+          f"{launches['thompson_round_batched'] / st['slots']:.2f} thompson_round_batched and "
+          f"{launches['match_update_batched'] / max(len(processed), 1):.2f} match_update_batched a processed batch")
+    return launches, dict(frames=frames, wall_s=wall, frames_per_s=frames / wall, slot_batches=st["slots"],
+                          processed_batches=len(processed), reissues=st["reissues"],
+                          invocations=st["detector_invocations"], cache_hits=st["cache_hits"])
+
+
+def async_path(torch, name, setup) -> tuple[dict, dict]:
+    """``AsyncSearchDriver`` on the main path's query (class 0,
+    ``MAIN_PLAN``'s cohorts, limit and budget), ``ASYNC_WORKERS`` worker
+    threads on their own streams: each cohort merged at most once, Σ merged
+    frames = step = Σ n, every result in the ring, no
+    ``MatcherRingOverflow``, B3's fused step once a processed frame.  Then
+    a synchronous drive of ``ASYNC_SYNC_COHORTS`` cohorts (two against one
+    snapshot, merged out of order), card against CPU, the card taking the
+    CPU's chunk ids.  Returns (launches, metrics)."""
+    from repro_torch.core import init_carry, init_matcher, init_state, prng
+    from repro_torch.core.runtime import AsyncSearchDriver
+    from repro_torch.sim import generate
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cohorts = MAIN_PLAN["cohorts"]
+
+    def make(device):
+        repo, chunks = generate(setup.repo, device=device)
+        carry = init_carry(init_state(chunks.length, device=device),
+                           init_matcher(max_results=MATCHER_CAPACITY, device=device), prng.PRNGKey(0, device=device))
+        return carry, chunks, detector_of("oracle", repo, 0)
+
+    carry, chunks, det = make(cuda)
+    driver = AsyncSearchDriver(carry, chunks, det, cohort_size=cohorts, num_workers=ASYNC_WORKERS,
+                               result_limit=MAIN_PLAN["result_limit"], max_frames=MAIN_PLAN["max_steps"])
+    merged, processed = [], []
+    merge, process = driver._merge, driver._process_one
+
+    def spy_merge(res):
+        if res.cohort_id in driver._inflight:
+            merged.append((res.cohort_id, res.frames))
+        merge(res)
+
+    def spy_process(wid, cohort):
+        res = process(wid, cohort)
+        processed.append(res.frames)
+        return res
+
+    driver._merge, driver._process_one = spy_merge, spy_process
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = driver.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st, step = driver.stats, int(out.step)
+    ids = [c for c, _ in merged]
+    bad = []
+    if len(ids) != len(set(ids)) or st["merges"] != len(ids):
+        bad.append("a cohort merged twice")
+    if not step == int(out.sampler.n.sum()) == sum(f for _, f in merged):
+        bad.append("Σ merged frames != step")
+    if int((out.matcher.times_seen > 0).sum()) != int(out.results) or st["spilled"]:
+        bad.append("ring")
+    if launches["match_update"] != sum(processed) or \
+            any(v for k, v in launches.items() if k != "match_update"):
+        bad.append(f"launches {launches}")
+    if bad:
+        fail(f"{name}: {bad}; stats {st}")
+    print(f"  {name}: {int(out.results)} results in {step} frames; {st['merges']} cohorts of {cohorts} merged once "
+          f"each ({st['reissues']} reissues, {st['duplicate_drops']} duplicates dropped, ring high-water "
+          f"{st['merge_high_water']}/{MATCHER_CAPACITY}); card {step / wall:.1f} frames/s ({wall:.2f} s); "
+          f"match_update {launches['match_update'] / max(sum(processed), 1):.2f} a processed frame "
+          f"({sum(processed)} processed)")
+    # the synchronous drive: the same cohorts, snapshots and merges in one order on both devices
+    drivers = [AsyncSearchDriver(*make(dev), cohort_size=cohorts, num_workers=1, result_limit=10**9,
+                                 max_frames=10**9) for dev in (cpu, cuda)]
+
+    def issue():
+        got = []
+        for d in drivers:
+            d._issue_cohort()
+            got.append(d._work.get_nowait())
+        got[1].chunk_ids = got[0].chunk_ids.copy()
+        return got
+
+    (c0, g0), (c1, g1) = issue(), issue()
+    pending = [(drivers[0]._process_one(0, c0), drivers[1]._process_one(0, g0)),
+               (drivers[0]._process_one(1, c1), drivers[1]._process_one(1, g1))]
+    for a, b in reversed(pending):
+        drivers[0]._merge(a)
+        drivers[1]._merge(b)
+    for _ in range(ASYNC_SYNC_COHORTS - 2):
+        c, g = issue()
+        drivers[0]._merge(drivers[0]._process_one(0, c))
+        drivers[1]._merge(drivers[1]._process_one(0, g))
+    diffs = same_carry(drivers[1].carry, drivers[0].carry)
+    if diffs or drivers[1].stats != drivers[0].stats:
+        fail(f"{name}: the synchronous drive, card != CPU on {diffs or 'stats'}")
+    print(f"  {name}: a synchronous drive of {ASYNC_SYNC_COHORTS} cohorts (two on one snapshot, merged out of "
+          f"order): card == CPU exactly ({int(drivers[1].carry.step)} frames, {int(drivers[1].carry.results)} results)")
+    return launches, dict(frames=step, results=int(out.results), wall_s=wall, frames_per_s=step / wall,
+                          merges=st["merges"], reissues=st["reissues"], processed_frames=sum(processed))
+
+
+def async_compose_bench_path(torch) -> None:
+    """``repro_torch.bench.async_compose --quick`` on the card; its 2x gate
+    raises."""
+    from repro_torch.bench import async_compose
+
+    t0 = time.perf_counter()
+    ratio = async_compose.main(["--quick"])
+    print(f"  bench async_compose --quick: ratio {ratio:.4f}x (gate 2x), {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ serve paths
@@ -2075,7 +2364,7 @@ def main() -> int:
         torch, bdd(scale=1.0), profile_plan, torch.device("cuda"), around=around)[:2], MAIN_PLAN["cohorts"])
 
     phase("multi path: Q-axis multi-query search, full width, card vs CPU:")
-    multi_launches, multi_metrics = multi_path(torch, "bdd(scale=1.0) multi", bdd(scale=1.0))
+    multi_launches, multi_metrics, multi_ref = multi_path(torch, "bdd(scale=1.0) multi", bdd(scale=1.0))
     per_query_contract(torch, "dashcam(scale=1.0) multi", dashcam(scale=1.0))
     multi_profile = dict(MULTI_PLAN, max_steps=500)
     oracle_multi_profile = profile_path(torch, "bdd multi Q=8", lambda around: run_multi(
@@ -2091,8 +2380,8 @@ def main() -> int:
         torch, bdd(scale=1.0), profile_plan, torch.device("cuda"), detector=det)) for det in ("noisy", "oracle")}
     noisy_vs_oracle("bdd scan", dict(noisy_scan, **replays["noisy"]), dict(scan_metrics["bdd(scale=1.0)"], **replays["oracle"]),
                     ("frames", "results", "frames_per_s", "capture_ms", "activities_a_round", "replay_ms", "replay_idle"))
-    noisy_multi_launches, noisy_multi = multi_path(torch, "bdd(scale=1.0) noisy multi", bdd(scale=1.0),
-                                                   detector="noisy")
+    noisy_multi_launches, noisy_multi, _ = multi_path(torch, "bdd(scale=1.0) noisy multi", bdd(scale=1.0),
+                                                      detector="noisy")
     noisy_multi_profile = profile_path(torch, "bdd noisy multi Q=8", lambda around: run_multi(
         torch, bdd(scale=1.0), multi_profile, torch.device("cuda"), around=around, detector="noisy")[:2],
         MULTI_PLAN["cohorts"], warm=False)
@@ -2105,6 +2394,20 @@ def main() -> int:
                                        scan_metrics["bdd(scale=1.0)"]["frames"])
     phase("bench multiquery: the full workload on the card against the pinned CPU counts:")
     multiquery_bench_path(torch)
+
+    phase("repository index on the bdd(1.0) multi path: the cold run == no index, the warm run 0 detector "
+          "calls from one captured graph; a warm-started scan, card vs CPU:")
+    index_metrics = index_path(torch, "bdd(scale=1.0) multi", bdd(scale=1.0), multi_ref)
+    phase(f"async_multi, bdd(scale=1.0), Q = {len(MULTI_CLASSES)}, W = {ASYNC_WORKERS}, method pallas: each "
+          "query == the card's multi run:")
+    async_multi_launches, async_multi_metrics = async_multi_path(torch, "bdd(scale=1.0) async_multi",
+                                                                 bdd(scale=1.0), multi_ref, multi_metrics)
+    del multi_ref
+    phase(f"async, bdd(scale=1.0), class 0, W = {ASYNC_WORKERS}: the merge invariants; a synchronous drive, "
+          "card vs CPU:")
+    async_launches, async_metrics = async_path(torch, "bdd(scale=1.0) async", bdd(scale=1.0))
+    phase("bench async_compose --quick on the card (gate 2x):")
+    async_compose_bench_path(torch)
 
     serve_launches, serve_metrics = {}, {}
     for family, cell in SERVE_CELLS.items():
@@ -2165,6 +2468,8 @@ def main() -> int:
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
     phase("done; the summary lines follow")
+    print(json.dumps({"index": {k: v for k, v in index_metrics.items() if k != "launches"},
+                      "async_multi": async_multi_metrics, "async": async_metrics}))
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
@@ -2173,6 +2478,8 @@ def main() -> int:
                                    "noisy_scan": noisy_scan_launches, "noisy_multi": noisy_multi_launches,
                                    "randomplus": baseline_launches["randomplus"],
                                    "greedy": baseline_launches["greedy"],
+                                   "index_warm_multi": index_metrics["launches"],
+                                   "async_multi": async_multi_launches, "async": async_launches,
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")

@@ -1,4 +1,4 @@
-"""ExSample core on PyTorch: the single-query and multi-query search paths.
+"""ExSample core on PyTorch: the single-query, multi-query and async search paths.
 
 Public re-exports, mirroring ``repro.core`` for what this package ports.
 """
@@ -32,11 +32,13 @@ from repro_torch.core.matcher import (
 )
 from repro_torch.core.plan import (
     Execution,
+    IndexSpec,
     PlanCompatibilityError,
     PlanError,
     PlanValueError,
     SearchPlan,
 )
+from repro_torch.core.runtime import AsyncMultiSearchDriver, AsyncSearchDriver, MatcherRingOverflow
 from repro_torch.core.state import (
     DEFAULT_ALPHA0,
     DEFAULT_BETA0,
@@ -59,6 +61,7 @@ __all__ = [
     "ExSampleCarry", "init_carry", "exsample_step", "exsample_batch_step",
     "init_carry_multi", "stack_carries", "RoundChoice", "RoundAux",
     "multi_round_choose", "multi_round_process",
-    "SearchPlan", "Execution", "PlanError", "PlanValueError", "PlanCompatibilityError",
+    "AsyncSearchDriver", "AsyncMultiSearchDriver", "MatcherRingOverflow",
+    "SearchPlan", "Execution", "IndexSpec", "PlanError", "PlanValueError", "PlanCompatibilityError",
     "LoweredPlan", "SearchResult", "SearchStats", "lower",
 ]

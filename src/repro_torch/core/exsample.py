@@ -498,11 +498,21 @@ def multi_round_process(
     *,
     detector: DetectorFn,
     select: SelectFn | None,
+    query_ids: torch.Tensor | None = None,
+    cached: tuple | None = None,
 ):
     """Process half of a multi-query round: dedup the Q·C frames, resolve
     them through the cache, run one detector call and fold each query's
     slots, in order, into its own ring and statistics.  ``select`` sees
-    row q as query q.
+    row q as ``query_ids[q]`` (default q): the async scheduler processes
+    gathered rows, whose position is not the query's id.
+
+    ``cached`` is the cache's answer for the round's frames, ``(hit
+    bool[Q*C], detections)``, looked up by the caller; the cache is then
+    neither read nor written here (``cache`` must be None), and the caller
+    inserts ``aux.fresh`` under ``aux.need`` itself.  The async scheduler
+    takes this path: its workers read a shared cache that only the
+    driver's merge writes.
 
     Returns ``(mc', cache', fresh_calls i32[], cache_hits i32[], aux)``;
     ``fresh_calls`` counts the unique, uncached frames of live queries,
@@ -511,7 +521,10 @@ def multi_round_process(
     q_n, c = choice.chunk_ids.shape
     b = q_n * c
     dev = active.device
-    query_ids = torch.arange(q_n, dtype=torch.int32, device=dev)
+    if cached is not None and cache is not None:
+        raise ValueError("pass the cache or the caller's lookup of it, not both")
+    if query_ids is None:
+        query_ids = torch.arange(q_n, dtype=torch.int32, device=dev)
     flat_frames = choice.frame_ids.reshape(b)
     flat_valid = active[:, None].expand(q_n, c).reshape(b)
 
@@ -521,13 +534,14 @@ def multi_round_process(
     with record_function("exsample.detect"):
         fresh = detector(choice.det_keys.reshape(b, -1), flat_frames)
     with record_function("exsample.dedup_cache"):
-        if cache is not None:
-            hit, cached = cache_lookup(cache, flat_frames)
+        if cache is not None or cached is not None:
+            hit, stored = cache_lookup(cache, flat_frames) if cached is None else cached
             resolved = tree_map(
                 lambda cv, fv: torch.where(hit.reshape((b,) + (1,) * (fv.dim() - 1)), cv, fv),
-                cached, fresh)
+                stored, fresh)
             need = is_rep & ~hit
-            cache = cache_insert(cache, flat_frames, fresh, need)
+            if cache is not None:
+                cache = cache_insert(cache, flat_frames, fresh, need)
         else:
             hit = torch.zeros((b,), dtype=torch.bool, device=dev)
             resolved = fresh
@@ -589,6 +603,14 @@ def _multi_round(
     return multi_round_process(mc, cache, chunks, active, choice, detector=detector, select=select)
 
 
+def detection_struct(detector: DetectorFn, key: torch.Tensor):
+    """One frame's detection tree from a batched ``detector`` (frame 0),
+    the shape a ``DetectionCache`` is built for: what the reference reads
+    with ``jax.eval_shape``."""
+    one = detector(key[None], torch.zeros((1,), dtype=torch.int64, device=key.device))
+    return tree_map(lambda x: x[0], one)
+
+
 def _multi_search(
     carries: ExSampleCarry,
     chunks: ChunkIndex,
@@ -601,6 +623,8 @@ def _multi_search(
     trace_every: int = 0,
     select: SelectFn | None = None,
     cache_frames: int = 0,
+    cache: DetectionCache | None = None,
+    warm_tag: torch.Tensor | None = None,
     rounds_per_sync: int = ROUNDS_PER_SYNC,
 ):
     """Q concurrent queries over one repository, one detector call per
@@ -619,23 +643,29 @@ def _multi_search(
     ``cache_frames`` slots of ``DetectionCache`` (0 = no cache) are
     allocated once, before the first round.
 
+    ``cache`` replaces that fresh cache (a repository index's preload,
+    ``RepositoryIndex.warm``), and ``warm_tag`` (i32[S], the preloaded
+    cache's tag, copied before the run) splits ``index_hits`` out of
+    ``cache_hits``: a hit whose slot still tags the preloaded frame is a
+    detector call a past search paid for.  An evicted preload cannot hit,
+    and a frame this run inserted into a preloaded slot fails the compare.
+
     Returns ``(carries', traces, stats)``: per-query traces and the
-    accounting ``detector_invocations``, ``cache_hits``, ``rounds``,
-    ``frames_sampled`` (Σ per-query steps), ``final_cache`` and ``loop``
-    (the ``LoopRecord``).
+    accounting ``detector_invocations``, ``cache_hits``, ``index_hits``,
+    ``rounds``, ``frames_sampled`` (Σ per-query steps), ``final_cache``
+    and ``loop`` (the ``LoopRecord``).
     """
     dev = carries.step.device
     q_n = carries.step.shape[0]
     limits = torch.as_tensor(result_limits, dtype=torch.int32).expand(q_n).to(dev)
-    cache = None
-    if cache_frames:
-        one = detector(carries.key[:1], torch.zeros((1,), dtype=torch.int64, device=dev))
-        cache = init_detection_cache(tree_map(lambda x: x[0], one), cache_frames, device=dev)
+    if cache is None and cache_frames:
+        cache = init_detection_cache(detection_struct(detector, carries.key[0]), cache_frames, device=dev)
     cap = _trace_cap(max_steps, cohorts, trace_every)
     buf = torch.zeros((q_n, cap + 1, 2), dtype=torch.int32, device=dev)  # row cap: dropped writes
     n = torch.zeros((q_n,), dtype=torch.int32, device=dev)
-    # detector calls, cache hits, rounds with a live query
-    counters = torch.zeros((3,), dtype=torch.int32, device=dev)
+    # detector calls, cache hits, index hits, rounds with a live query
+    counters = torch.zeros((4,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
 
     def live(mc: ExSampleCarry) -> torch.Tensor:
         return ((mc.results < limits) & (mc.step < max_steps)
@@ -643,10 +673,14 @@ def _multi_search(
 
     def round_fn(mc: ExSampleCarry) -> ExSampleCarry:
         active = live(mc)
-        new, _, fresh, hit, _ = _multi_round(
+        new, _, fresh, hit, aux = _multi_round(
             mc, cache, chunks, active, detector=detector, select=select,
             cohorts=cohorts, method=method)
-        counters.add_(torch.stack([fresh, hit, active.any().int()]))
+        ihit = zero
+        if warm_tag is not None:
+            wslot = torch.remainder(aux.flat_frames, warm_tag.shape[0]).long()
+            ihit = (aux.rep_hit & (warm_tag[wslot] == aux.flat_frames)).sum().int()
+        counters.add_(torch.stack([fresh, hit, ihit, active.any().int()]))
         if trace_every:
             crossed = new.step // trace_every > mc.step // trace_every
             _trace_write(buf, n, crossed, torch.stack([new.step, new.results], dim=-1))
@@ -656,14 +690,15 @@ def _multi_search(
                               rounds_per_sync=rounds_per_sync)
     _trace_final(buf, n, torch.stack([mc.step, mc.results], dim=-1))
     flat = torch.cat([counters, n, buf.reshape(-1)]).tolist()
-    (calls, hits, rounds), counts = flat[:3], flat[3:3 + q_n]
-    rows = flat[3 + q_n:]
+    (calls, hits, ihits, rounds), counts = flat[:4], flat[4:4 + q_n]
+    rows = flat[4 + q_n:]
     width = 2 * (cap + 1)
     traces = [[(rows[q * width + 2 * i], rows[q * width + 2 * i + 1]) for i in range(counts[q])]
               for q in range(q_n)]
     stats = {
         "detector_invocations": calls,
         "cache_hits": hits,
+        "index_hits": ihits,
         "rounds": rounds,
         "frames_sampled": int(mc.step.sum()),
         "final_cache": cache,

@@ -4,8 +4,9 @@ Counterpart of ``repro.core.plan``: ``SearchPlan`` (WHAT to search) and
 ``Execution`` (HOW to run it), their typed ``PlanError`` family, serde and
 ``resolve()`` are copied whole, so a plan dict validates and resolves to
 the same ``(kind, method)`` in both packages.  ``lower()`` binds the
-``host`` and ``scan`` kinds, which this package implements; every other
-kind raises ``PlanCompatibilityError`` naming the port slice it waits for.
+single-device kinds (``host``, ``scan``, ``multi``, ``async``,
+``async_multi``), which this package implements; the mesh kinds raise
+``PlanCompatibilityError`` naming the port slice they wait for.
 """
 from __future__ import annotations
 
@@ -424,10 +425,12 @@ class SearchPlan:
 
         return lower(self)
 
-    def run(self, carry, chunks, *, detector, select=None):
+    def run(self, carry, chunks, *, detector, select=None, index=None):
         """``lower()`` + execute.  See
-        :meth:`repro_torch.core.executor.LoweredPlan.run`."""
-        return self.lower().run(carry, chunks, detector=detector, select=select)
+        :meth:`repro_torch.core.executor.LoweredPlan.run`; ``index`` passes
+        an open :class:`~repro_torch.index.RepositoryIndex` instead of
+        opening one from ``execution.index``."""
+        return self.lower().run(carry, chunks, detector=detector, select=select, index=index)
 
     # ---- serde ------------------------------------------------------------
 

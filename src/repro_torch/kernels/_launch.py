@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -28,6 +29,18 @@ def bind(lib_name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> c
     fn.argtypes = argtypes
     fn.restype = restype
     return fn
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, body: str | None = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``launches_by_body[body]``)
+    under a lock: the async runtime's workers launch from several threads."""
+    with _count_lock:
+        wrapper.launches += 1
+        if body is not None:
+            wrapper.launches_by_body[body] += 1
 
 
 def check_status(kernel: str, rc: int) -> None:

@@ -5,7 +5,9 @@ nvcc for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root of
 the checkout and loaded with ``ctypes``.  The library's file name carries
 a hash of its source and flags, so an edited source is never served from
 a stale build.  ``build`` starts one nvcc per source, all at once.
-A failed build raises; there is no fallback.
+A failed build raises; there is no fallback.  ``load`` is safe to call
+from several threads (the async runtime's workers): one builds, the
+others wait for it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +31,7 @@ NVCC_FLAGS = (
 SOURCES = ("thompson_choose", "iou_matrix", "flash_attention", "flash_decode", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -55,7 +59,8 @@ def build(names=SOURCES) -> dict[str, dict]:
     procs = {}
     for name in names:
         out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # one name per process and thread: two builds of a source never share a file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), out, tmp, time.perf_counter())
@@ -74,12 +79,17 @@ def build(names=SOURCES) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, built first if it is not there."""
+    """The loaded library for ``name``, built first if it is not there.
+    Thread-safe: a library is built and loaded once, under a lock that
+    only a miss takes."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build((name,))
+                lib = ctypes.CDLL(str(path))
+                _loaded[name] = lib
     return lib

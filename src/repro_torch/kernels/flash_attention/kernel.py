@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import bind, check_status
+from repro_torch.kernels._launch import bind, check_status, count_launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,8 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 out.data_ptr(), b, s, t, h, kv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(causal), 1.0 / math.sqrt(d), stream)
     check_status("flash_attention", rc)
-    flash_attention.launches += 1
-    flash_attention.launches_by_body[body] += 1
+    count_launch(flash_attention, body)
     return out
 
 

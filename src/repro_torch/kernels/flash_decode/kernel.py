@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import bind, check_status
+from repro_torch.kernels._launch import bind, check_status, count_launch
 from repro_torch.kernels.flash_attention.kernel import DTYPES, check_head_dim, check_operand
 
 _P = ctypes.c_void_p
@@ -78,7 +78,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 cache_len.data_ptr(), out.data_ptr(), b, t, h, kv, d, splits, *q.stride()[:2],
                 *k_cache.stride()[:3], *v_cache.stride()[:3], 1.0 / math.sqrt(d), stream)
     check_status("flash_decode", rc)
-    flash_decode.launches += 1
+    count_launch(flash_decode)
     return out
 
 

@@ -8,7 +8,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels._launch import bind, check_status, require_cuda_f32
+from repro_torch.kernels._launch import bind, check_status, count_launch, require_cuda_f32
 from repro_torch.kernels.iou_match.ref import RING_FIELDS, MatchResult
 
 _P = ctypes.c_void_p
@@ -46,7 +46,7 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(boxes_a.device).cuda_stream
         rc = fn(boxes_a.data_ptr(), boxes_b.data_ptr(), d, r, out.data_ptr(), stream)
     check_status("iou_matrix", rc)
-    iou_matrix.launches += 1
+    count_launch(iou_matrix)
     return out
 
 
@@ -73,7 +73,7 @@ def iou_matrix_batched(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
         stream = torch.cuda.current_stream(boxes_a.device).cuda_stream
         rc = fn(boxes_a.data_ptr(), boxes_b.data_ptr(), q, d, r, out.data_ptr(), stream)
     check_status("iou_matrix_batched", rc)
-    iou_matrix_batched.launches += 1
+    count_launch(iou_matrix_batched)
     return out
 
 
@@ -178,7 +178,7 @@ def match_update(state, boxes, feats, valid, video_id, frame_id, chunk_id) -> Ma
     ``ref.match_update_ref``; the new state and every output are fresh
     tensors.  One launch; counted in ``match_update.launches``."""
     out = _match_update(state, boxes, feats, valid, video_id, frame_id, chunk_id, None)
-    match_update.launches += 1
+    count_launch(match_update)
     return out
 
 
@@ -191,7 +191,7 @@ def match_update_batched(state, boxes, feats, valid, video_id, frame_id, chunk_i
     equals ``match_update`` on its own ring.  One launch; counted in
     ``match_update_batched.launches``."""
     out = _match_update(state, boxes, feats, valid, video_id, frame_id, chunk_id, state.times_seen.shape[0])
-    match_update_batched.launches += 1
+    count_launch(match_update_batched)
     return out
 
 

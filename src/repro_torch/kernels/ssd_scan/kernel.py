@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._launch import bind, check_status
+from repro_torch.kernels._launch import bind, check_status, count_launch
 from repro_torch.kernels.ssd_scan.ref import chunk_len
 
 _P = ctypes.c_void_p
@@ -88,7 +88,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.
                 y.data_ptr(), h_out.data_ptr(), scratch.data_ptr(), bsz, s, h, p, n, q, *x.stride()[:3],
                 *dt.stride(), *bmat.stride()[:2], *cmat.stride()[:2], a.stride(0), stream)
     check_status("ssd_scan", rc)
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y, h_out
 
 

@@ -10,7 +10,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels._launch import bind, check_status, require_cuda_f32
+from repro_torch.kernels._launch import bind, check_status, count_launch, require_cuda_f32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,7 +49,7 @@ def thompson_choose(alpha: torch.Tensor, beta: torch.Tensor, z: torch.Tensor):
         rc = fn(alpha.data_ptr(), beta.data_ptr(), z.data_ptr(), c, m,
                 idx.data_ptr(), val.data_ptr(), _stream(z))
     check_status("thompson_choose", rc)
-    thompson_choose.launches += 1
+    count_launch(thompson_choose)
     return idx, val
 
 
@@ -78,7 +78,7 @@ def thompson_choose_batched(alpha: torch.Tensor, beta: torch.Tensor, z: torch.Te
         rc = fn(alpha.data_ptr(), beta.data_ptr(), z.data_ptr(), q, c, m,
                 idx.data_ptr(), val.data_ptr(), _stream(z))
     check_status("thompson_choose_batched", rc)
-    thompson_choose_batched.launches += 1
+    count_launch(thompson_choose_batched)
     return idx, val
 
 
@@ -153,7 +153,7 @@ def thompson_round(key: torch.Tensor, state, cohorts: int):
     ``ref.thompson_round_ref`` (and to ``ref.thompson_round_split_ref`` at
     ``round_splits``'s S).  Counted in ``thompson_round.launches``."""
     out = _round(key, state, cohorts, ())
-    thompson_round.launches += 1
+    count_launch(thompson_round)
     return out
 
 
@@ -166,7 +166,7 @@ def thompson_round_batched(keys: torch.Tensor, state, cohorts: int):
     val f32[Q, C]); row q equals ``thompson_round`` on key q and query q's
     statistics.  Counted in ``thompson_round_batched.launches``."""
     out = _round(keys, state, cohorts, tuple(state.n1.shape[:1]))
-    thompson_round_batched.launches += 1
+    count_launch(thompson_round_batched)
     return out
 
 

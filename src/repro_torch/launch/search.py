@@ -1,7 +1,7 @@
 """Search CLI: ExSample distinct-object queries, end to end, on the card.
 
-Counterpart of ``repro.launch.search`` for the ``host``, ``scan`` and
-``multi`` kinds:
+Counterpart of ``repro.launch.search`` for the single-device kinds
+(``host``, ``scan``, ``multi``, ``async``, ``async_multi``):
 
   python -m repro_torch.launch.search --limit 50 --cohorts 16
   python -m repro_torch.launch.search --dataset bdd --scale 1.0 \\
@@ -11,12 +11,14 @@ Counterpart of ``repro.launch.search`` for the ``host``, ``scan`` and
                "method": "pallas", "execution": {"queries_axis": true, "cache": -1}}'
 
 ``--plan`` takes a ``SearchPlan.to_dict()`` JSON document (or ``@file``);
-the Thompson method and the detection cache go inside it, as in the
+the Thompson method, the detection cache, the async workers
+(``"execution": {"async_workers": 4}``) and the repository index
+(``"execution": {"index": {"path": ...}}``) go inside it, as in the
 reference CLI.  Without it the plan is a single query built from
 ``--limit``/``--max-steps``/``--cohorts``.  A plan that lowers to ``multi``
-runs one query per class in ``--queries`` (default ``0..Q-1``) over one
-class-agnostic detector, each query keeping its own class's detections,
-with the keys ``fold_in(PRNGKey(seed), q)``.  ``--detector noisy`` adds
+or ``async_multi`` runs one query per class in ``--queries`` (default
+``0..Q-1``) over one class-agnostic detector, each query keeping its own
+class's detections, with the keys ``fold_in(PRNGKey(seed), q)``.  ``--detector noisy`` adds
 misses, box jitter and false positives (``sim.noisy_detect``).
 ``--baseline`` then runs random+ over the same repository, up to the
 plan's frame budget, and prints the savings (random+ frames / ExSample
@@ -80,7 +82,8 @@ def main(argv=None) -> None:
 
     plan = build_plan(args)
     lowered = plan.lower()
-    if args.queries and lowered.kind != "multi":
+    multi = lowered.kind in ("multi", "async_multi")
+    if args.queries and not multi:
         raise SystemExit("--queries needs a --plan that lowers to multi (queries_axis)")
     device = resolve(args.device)
     setup = (dashcam if args.dataset == "dashcam" else bdd)(seed=args.seed, scale=args.scale)
@@ -92,7 +95,6 @@ def main(argv=None) -> None:
     sampler = init_state(chunks.length, device=device)
     matcher = init_matcher(max_results=MATCHER_CAPACITY, device=device)
     select = None
-    multi = lowered.kind == "multi"
     query_class = None if multi else args.query_class
     if args.detector == "oracle":
         def det(key, frame):
@@ -121,11 +123,18 @@ def main(argv=None) -> None:
     cost = sampling_cost(st.detector_invocations, CostRates())
     line = (f"ExSample[{res.kind}]: {sum(res.results)} results / {st.frames_sampled:,} frames "
             f"sampled / {st.detector_invocations:,} detector invocations")
-    if res.kind == "multi":
+    if st.cache_hits or res.num_queries > 1:
         line += (f" ({st.cache_hits:,} cache hits, hit rate {st.cache_hit_rate:.2f}, "
                  f"{st.amortization:.2f}x amortization, {st.rounds} rounds)")
     print(line + f" / est. {cost.total_s:.0f} gpu·s (driver wall {wall:.1f}s, "
           f"{st.frames_sampled / max(wall, 1e-9):.0f} frames/s)")
+    if st.merges:
+        print(f"  merges: {st.merges} windows, ring high-water {st.merge_high_water}/{st.matcher_capacity}"
+              + (f", {st.results_spilled} results spilled to host log" if st.results_spilled else "")
+              + (" OVERFLOW" if st.merge_overflow else ""))
+    if plan.execution.index is not None:
+        print(f"  index: {st.index_hits:,} index hits, {st.persisted_detections:,} detections persisted, "
+              f"{st.warm_rounds_saved} warm rounds saved")
     if args.baseline and not multi:
         base = init_carry(init_state(chunks.length, device=device),
                           init_matcher(max_results=MATCHER_CAPACITY, device=device),

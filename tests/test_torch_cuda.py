@@ -807,3 +807,117 @@ def test_randomplus_and_greedy_on_the_card_equal_the_cpu(card, noisy):
         for x, y in pairs:
             x = x.cpu()
             assert torch.equal(_bits(x) if x.dtype == torch.float32 else x, _bits(y) if y.dtype == torch.float32 else y)
+
+
+# ---- the repository index and the async runtime ------------------------------
+
+
+def test_index_warm_and_publish_cache_on_the_card(card, tmp_path):
+    """A cache preloaded on the card equals the same preload on the CPU,
+    tensor for tensor; a search's final cache on the card publishes the
+    same detections as the CPU's, never its scratch row, and the warm
+    replay on the card calls the detector on no frame."""
+    from repro_torch.index import RepositoryIndex
+    from repro_torch.serve.batcher import cache_insert, init_detection_cache
+
+    want = _search("cpu", MULTI_PLAN, multi=True)
+    got = _search(card, MULTI_PLAN, multi=True)
+    idx_gpu, idx_cpu = RepositoryIndex(), RepositoryIndex()
+    assert idx_gpu.publish_cache(got.final_cache) == idx_cpu.publish_cache(want.final_cache) == \
+        got.stats.detector_invocations > 0
+    assert sorted(idx_gpu._tiers["v0"]) == sorted(idx_cpu._tiers["v0"])
+    for f, leaves in idx_cpu._tiers["v0"].items():
+        for x, y in zip(idx_gpu._tiers["v0"][f], leaves):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    cap = got.final_cache.capacity
+    struct = type(got.final_cache.store)(*(x[0] for x in got.final_cache.store))
+    warm_gpu, frames_gpu = idx_gpu.warm(struct, cap)
+    warm_cpu, frames_cpu = idx_cpu.warm(type(struct)(*(x.cpu() for x in struct)), cap)
+    assert frames_gpu == frames_cpu and warm_gpu.tag.device.type == "cuda"
+    assert torch.equal(warm_gpu.tag.cpu(), warm_cpu.tag)
+    for x, y in zip(warm_gpu.store, warm_cpu.store):
+        assert torch.equal(x.cpu(), y)
+    empty, _ = RepositoryIndex().warm(struct, 64)
+    cold = init_detection_cache(struct, 64)
+    assert torch.equal(empty.tag, cold.tag) and all(torch.equal(x, y) for x, y in zip(empty.store, cold.store))
+    # a collision inside one batch: the loser's id lands on the scratch row only
+    toy = init_detection_cache(torch.zeros((), device=card), 4)
+    frames = torch.tensor([3, 7], device=card)
+    cache_insert(toy, frames, frames.float(), torch.tensor([True, True], device=card))
+    assert int(toy.tag[4]) == 7
+    idx = RepositoryIndex()
+    assert idx.publish_cache(toy) == 1 and idx.lookup(7) is None
+    # the warm replay on the card, through the plan
+    plan = dict(MULTI_PLAN, execution=dict(MULTI_PLAN["execution"], index=dict(path=str(tmp_path))))
+    cold_run = _search(card, plan, multi=True)
+    warm_run = _search(card, plan, multi=True)
+    assert warm_run.stats.detector_invocations == 0
+    assert warm_run.stats.index_hits == warm_run.stats.cache_hits > 0
+    assert (warm_run.steps, warm_run.results, warm_run.traces) == (want.steps, want.results, want.traces)
+    assert cold_run.stats.persisted_detections == want.stats.detector_invocations
+    assert warm_run.loop.captured
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_async_multi_on_the_card_equals_multi(card, workers):
+    """The slot scheduler with W worker threads, each on its own stream,
+    gives every query the trajectory of the card's multi kind."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.core.runtime import AsyncMultiSearchDriver
+    from repro_torch.sim import class_select, generate, oracle_detect
+
+    want = _search(card, MULTI_PLAN, multi=True)
+    repo, chunks = generate(dashcam(scale=0.02).repo, device=card)
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(0, device=card), q) for q in range(len(MULTI_CLASSES))])
+    carry = tcore.init_carry_multi(tcore.init_state(chunks.length, device=card),
+                                   tcore.init_matcher(max_results=SEARCH_RING, device=card), keys)
+    driver = AsyncMultiSearchDriver(
+        carry, chunks, lambda k, f: oracle_detect(repo, f, query_class=None), cohorts=MULTI_PLAN["cohorts"],
+        num_workers=workers, result_limits=MULTI_PLAN["result_limit"], max_steps=MULTI_PLAN["max_steps"],
+        method="pallas", select=class_select(repo, MULTI_CLASSES), cache_frames=chunks.total_frames,
+        trace_every=MULTI_PLAN["trace_every"])
+    out = driver.run()
+    torch.cuda.synchronize()
+    assert tuple(out.step.tolist()) == want.steps and tuple(out.results.tolist()) == want.results
+    assert driver.traces == want.traces
+    a, b = out, want.carry
+    pairs = [(getattr(a.sampler, f), getattr(b.sampler, f)) for f in ("n1", "n")]
+    pairs += [(getattr(a.matcher, f), getattr(b.matcher, f)) for f in RING_FIELDS]
+    pairs += [(a.key, b.key)]
+    for x, y in pairs:
+        x, y = x.cpu(), y.cpu()
+        assert torch.equal(_bits(x) if x.dtype == torch.float32 else x, _bits(y) if y.dtype == torch.float32 else y)
+    st = driver.stats
+    assert st["merges"] == st["slots"] and st["detector_invocations"] <= int(out.step.sum())
+    assert sum(r.rounds for r in driver.rows) == st["lanes_issued"]
+
+
+def test_async_search_on_the_card_keeps_its_invariants(card):
+    """The single-query tier with 4 worker streams: every frame merged once
+    (Σ merged frames = step = Σ n), the ring holds every result, and B3's
+    fused step ran once a processed frame."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.core.runtime import AsyncSearchDriver
+    from repro_torch.sim import generate, oracle_detect
+
+    repo, chunks = generate(dashcam(scale=0.02).repo, device=card)
+    carry = tcore.init_carry(tcore.init_state(chunks.length, device=card),
+                             tcore.init_matcher(max_results=SEARCH_RING, device=card), prng.PRNGKey(0, device=card))
+    driver = AsyncSearchDriver(carry, chunks, lambda k, f: oracle_detect(repo, f, query_class=7), cohort_size=8,
+                               num_workers=4, result_limit=20, max_frames=600)
+    processed, process = [], driver._process_one
+
+    def counted(wid, cohort):
+        res = process(wid, cohort)
+        processed.append(res.frames)
+        return res
+
+    driver._process_one = counted
+    before = match_update.launches
+    out = driver.run()
+    torch.cuda.synchronize()
+    assert int(out.step) == int(out.sampler.n.sum()) == 8 * driver.stats["merges"]
+    assert int((out.matcher.times_seen > 0).sum()) == int(out.results)
+    assert match_update.launches - before == sum(processed)

@@ -2,6 +2,7 @@
 package, and its entry points run on the card unless told otherwise."""
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -41,10 +42,13 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
-    assert {"core", "kernels", "serve", "sim", "launch", "models", "configs", "bench"} <= scanned
+    assert {"core", "kernels", "serve", "sim", "launch", "models", "configs", "bench", "index", "distributed",
+            "examples"} <= scanned
     modules = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
-            "kernels/ssd_scan/ref.py"} <= modules
+            "kernels/ssd_scan/ref.py", "index/store.py", "index/priors.py", "core/runtime.py",
+            "core/distributed.py", "distributed/fault_tolerance.py", "examples/quickstart.py",
+            "bench/async_compose.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -64,7 +68,8 @@ def test_entry_points_default_to_the_card():
     """Without a card, the default device is an error, not a CPU run."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    from repro_torch.bench import multiquery, savings
+    from repro_torch.bench import async_compose, multiquery, savings
+    from repro_torch.examples import quickstart
     from repro_torch.device import resolve
     from repro_torch.launch import search, serve
 
@@ -81,6 +86,10 @@ def test_entry_points_default_to_the_card():
         savings.main(["--quick", "--scale", "0.02"])
     with pytest.raises(RuntimeError, match="cuda"):
         multiquery.main(["--quick"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        async_compose.main(["--quick"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        quickstart.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "phi3-medium-14b", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
@@ -110,3 +119,29 @@ def test_multi_cli_runs_on_the_cpu_when_asked(capsys):
     assert "query 2:" in out and "cache hits" in out and "amortization" in out
     with pytest.raises(SystemExit, match="--queries needs a --plan"):
         search.main(["--device", "cpu", "--scale", "0.02", "--queries", "0", "1"])
+
+
+def test_async_multi_cli_prints_the_merges_line(capsys):
+    from repro_torch.launch import search
+
+    search.main(["--device", "cpu", "--scale", "0.02", "--queries", "7", "3",
+                 "--plan", '{"queries": 2, "result_limit": 3, "max_steps": 64, "cohorts": 8, '
+                           '"execution": {"queries_axis": true, "cache": -1, "async_workers": 2}}'])
+    out = capsys.readouterr().out
+    assert "lowering=async_multi method=exact" in out and "ExSample[async_multi]" in out
+    assert "query 1:" in out and "  merges: " in out and "ring high-water" in out
+
+
+def test_cli_with_an_index_prints_its_economics(capsys, tmp_path):
+    from repro_torch.launch import search
+
+    plan = ('{"queries": 2, "result_limit": 3, "max_steps": 64, "cohorts": 8, "method": "pallas", '
+            '"execution": {"queries_axis": true, "cache": -1, "index": {"path": "%s"}}}' % tmp_path)
+    for _ in range(2):
+        search.main(["--device", "cpu", "--scale", "0.02", "--queries", "7", "3", "--plan", plan])
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("  index:")]
+    (cold_hits, cold_kept), (warm_hits, warm_kept) = [
+        [int(v.replace(",", "")) for v in re.findall(r"([\d,]+) (?:index hits|detections persisted)", line)]
+        for line in lines]
+    assert cold_hits == 0 and cold_kept > 0
+    assert warm_hits > 0 and warm_kept == 0

@@ -88,7 +88,7 @@ def test_plan_resolution_and_unported_kinds_raise():
         jp, tp = jcore.SearchPlan.from_dict(d), tcore.SearchPlan.from_dict(d)
         assert jp.resolve() == tp.resolve()
         assert jp.to_dict() == tp.to_dict()
-        if tp.resolve()[0] in ("host", "scan", "multi"):
+        if tp.resolve()[0] in ("host", "scan", "multi", "async", "async_multi"):
             assert tp.lower().kind == jp.lower().kind
         else:
             with pytest.raises(tcore.PlanCompatibilityError, match="does not run yet"):
