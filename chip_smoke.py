@@ -18,7 +18,9 @@ the bdd multi path (cold equal to no index, warm with no detector call and one c
 a prior-warmed scan card against CPU), the async_multi kind (8 queries, 4 worker threads on
 their own streams, each query equal to the multi run), the async kind (its merge invariants,
 and a synchronous drive card against CPU) and repro_torch.bench.async_compose --quick (its 2x
-gate); then serve the full-width
+gate); then the tenant service (8 tenants of bdd(1.0) in two waves of 4 on one live driver: no result
+lost, the pool no larger than a wave, the overdraft plan rejected, the ledger settled, a tenant of each
+wave equal to its solo scan) and its HTTP front; then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
 through kernel B5) and the full-width mamba2-370m (prefill through kernel
 B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
@@ -87,6 +89,20 @@ ROUNDS_PER_SYNC_SWEEP = (1, 2, 4, 8, 16)
 ASYNC_WORKERS = 4
 # the async kind's synchronous drive, card against CPU: cohorts issued, processed and merged in one order
 ASYNC_SYNC_COHORTS = 4
+# the tenant service (benchmarks/bench_service.py's shape): the eight MULTI_CLASSES tenants at
+# MULTI_PLAN's limit and cohorts, in two waves of four over one live driver of ASYNC_WORKERS workers,
+# two slots a batch, the cache repository-sized, the ring MATCHER_CAPACITY, the service's "exact".
+# A tenant admitted at pool round r loses cohorts x r frames (the reference's debit), and the first
+# wave runs MULTI_PLAN's 2,000 frames (40 rounds); so the second wave, each tenant submitted as a
+# first-wave tenant retires, asks for twice that and keeps 2,000 after the debit.  The budget covers
+# the eight projections; the overdraft plan projects 50 times it and must be rejected.
+SERVICE_WAVE = 4
+SERVICE_PLANS = (dict(result_limit=MULTI_PLAN["result_limit"], max_steps=MULTI_PLAN["max_steps"],
+                      cohorts=MULTI_PLAN["cohorts"]),
+                 dict(result_limit=MULTI_PLAN["result_limit"], max_steps=2 * MULTI_PLAN["max_steps"],
+                      cohorts=MULTI_PLAN["cohorts"]))
+SERVICE_SLOTS_PER_BATCH = 2
+SERVICE_SLO_S = 60.0
 # the scan whose Thompson prior the repository index warms (prior_weight > 0), card against CPU
 PRIOR_SCAN_PLAN = dict(MAIN_PLAN, max_steps=1000)
 PRIOR_WEIGHT = 50.0
@@ -423,6 +439,7 @@ def check_b1_build(info: dict) -> None:
 
 
 WITNESS = "spin_kernel"        # the kernel of torch.cuda._sleep
+SPARE = "FillFunctor"          # in the name of the kernel of Tensor.fill_
 
 
 def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
@@ -432,16 +449,21 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
     each side on the same stream, and padded with host time (CAPTURE_PAD_S,
     longer at each try).  A capture that lacks any of the four witnesses, or
     holds a kernel of ``fn`` outside them, lost device activities and is
-    taken again, up to ``tries`` times; the check fails if none was whole."""
+    taken again, up to ``tries`` times; the check fails if none was whole.
+    A fill launched first, before the witnesses, is not counted either way:
+    a capture has been seen to drop its first device activity in each of
+    three tries, which then cost a witness."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    spare = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(tries):
         pad = CAPTURE_PAD_S * 4 ** attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
+            spare.fill_(0.0)
             torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
             fn()
@@ -450,6 +472,8 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
             torch.cuda.synchronize()
             time.sleep(pad)
         names = [e.name for e in sorted(device_events(prof), key=lambda e: e.time_range.start)]
+        if names and SPARE in names[0]:
+            names = names[1:]
         spin = [WITNESS in n for n in names]
         if sum(spin) == 4 and spin[:2] == [True, True] and spin[-2:] == [True, True]:
             return names[2:-2]
@@ -1841,6 +1865,195 @@ def async_path(torch, name, setup) -> tuple[dict, dict]:
                           merges=st["merges"], reissues=st["reissues"], processed_frames=sum(processed))
 
 
+def service_path(torch, name, setup) -> tuple[dict, dict]:
+    """The tenant service on the card (``SERVICE_*``): ``SearchService``
+    over ``setup`` with the class-agnostic oracle, ``class_select`` over
+    every class and the background pump; the first wave submitted, the
+    overdraft plan rejected, each second-wave tenant submitted once a
+    first-wave tenant has retired, then the drain.  Fails on a lost
+    result (results != live ring entries + spilled log), a pool past the
+    wave, a rejected plan with a row, a ledger that does not settle, a
+    launch other than ``match_update_batched`` once a processed cohort
+    slot, or the first tenant of either wave != its solo scan on the card
+    (kind scan, "exact", the same key) at its debited budget.  Returns
+    (launches, metrics)."""
+    from repro_torch.core import Execution, SearchPlan, init_carry, init_carry_multi, init_matcher, init_state, prng
+    from repro_torch.core.plan import ServiceConfig
+    from repro_torch.serve.service import FINISHED, REJECTED, SearchService
+    from repro_torch.sim import class_select, filter_class, generate, oracle_detect
+    from repro_torch.sim.costmodel import CostRates, plan_projected_cost
+
+    cuda = torch.device("cuda")
+    cohorts = MULTI_PLAN["cohorts"]
+    repo, chunks = generate(setup.repo, device=cuda)
+    num_classes = int(repo.inst_class.max()) + 1
+    rates = CostRates()
+
+    def plan(wave):
+        return SearchPlan(**SERVICE_PLANS[wave], execution=Execution(
+            queries_axis=True, service=ServiceConfig(slo_latency_s=SERVICE_SLO_S, queue_on_reject=True)))
+
+    budget_s = SERVICE_WAVE * sum(plan_projected_cost(plan(w), rates).total_s for w in (0, 1)) + 1.0
+    proto = init_carry_multi(init_state(chunks.length, device=cuda),
+                             init_matcher(max_results=MATCHER_CAPACITY, device=cuda),
+                             torch.stack([prng.PRNGKey(0, device=cuda)]))
+    service = SearchService(
+        proto, chunks, detector_of("oracle", repo, None), select=class_select(repo, list(range(num_classes))),
+        budget_s=budget_s, rates=rates, cohorts=cohorts, num_workers=ASYNC_WORKERS,
+        max_steps=MULTI_PLAN["max_steps"], cache_frames=chunks.total_frames, slots_per_batch=SERVICE_SLOTS_PER_BATCH)
+    driver = service.driver
+    processed, process = [], driver._process_batch
+
+    def counted_batch(wid, batch):
+        res = process(wid, batch)
+        processed.append(batch.batch_id)
+        return res
+
+    driver._process_batch = counted_batch
+    keys = [prng.fold_in(prng.PRNGKey(0, device=cuda), q) for q in range(len(MULTI_CLASSES))]
+    wave1 = [f"t{q}" for q in range(SERVICE_WAVE)]
+    wave2 = [f"t{q}" for q in range(SERVICE_WAVE, len(MULTI_CLASSES))]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    service.start(pump=True)
+    try:
+        for q, tid in enumerate(wave1):
+            service.submit(tid, plan(0), key=keys[q], select_id=MULTI_CLASSES[q])
+        # 50 times the frames of the eight projections, as bench_service's
+        overdraft = service.submit("overdraft", SearchPlan(
+            result_limit=MULTI_PLAN["result_limit"], cohorts=cohorts, execution=Execution(queries_axis=True),
+            max_steps=50 * SERVICE_WAVE * sum(p["max_steps"] for p in SERVICE_PLANS)), seed=99, select_id=0)
+        for q, tid in enumerate(wave2, start=SERVICE_WAVE):
+            while sum(service.tenants[t].state == FINISHED for t in wave1) <= q - SERVICE_WAVE:
+                if service.failure is not None:
+                    service.drain()       # raises the failure
+                if time.perf_counter() - t0 > 600:
+                    fail(f"{name}: the first wave did not retire within 600 s")
+                time.sleep(0.002)
+            service.submit(tid, plan(1), key=keys[q], select_id=MULTI_CLASSES[q])
+        service.drain(deadline_s=600.0)
+    finally:
+        service.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = service.stats()
+    tenants = {tid: service.tenants[tid] for tid in wave1 + wave2}
+    bad = []
+    if overdraft.state != REJECTED or overdraft.row is not None or overdraft.row_obj is not None:
+        bad.append(f"the overdraft plan was not rejected ({overdraft.state})")
+    if len(driver.rows) > SERVICE_WAVE:
+        bad.append(f"the pool grew to {len(driver.rows)} rows")
+    for tid, t in tenants.items():
+        row = t.row_obj
+        live = int((row.carry.matcher.times_seen > 0).sum())
+        if t.state != FINISHED or int(row.carry.results) != live + len(row.log):
+            bad.append(f"{tid}: {t.state}, {int(row.carry.results)} results != {live} live + {len(row.log)} spilled")
+    settled = sum(t.actual_s for t in tenants.values())
+    if abs(st["budget"]["committed_s"]) > 1e-6 or not math.isclose(st["budget"]["spent_s"], settled, rel_tol=1e-9):
+        bad.append(f"ledger {st['budget']} against {settled} settled")
+    if launches["match_update_batched"] != cohorts * len(processed) or \
+            any(v for k, v in launches.items() if k != "match_update_batched"):
+        bad.append(f"launches {launches} for {len(processed)} processed batches")
+    if bad:
+        fail(f"{name}: {bad}")
+    frames = sum(int(t.row_obj.carry.step) for t in tenants.values())
+    d = st["driver"]
+    print(f"  {name}: {len(tenants)} tenants in two waves of {SERVICE_WAVE}, the overdraft plan rejected; every "
+          f"result kept (live ring + spilled log), the pool {len(driver.rows)} rows, the ledger settled "
+          f"({st['budget']['spent_s']:.1f} s spent of {st['budget']['total_s']:.1f}); {d['slots']} slot batches, "
+          f"{len(processed)} processed, {d['reissues']} reissues")
+    print(f"    wall {wall:.2f} s; {frames} frames, {frames / wall:.1f} frames/s; {d['detector_invocations']} detector "
+          f"calls, {d['cache_hits']} cache hits, amortization {frames / max(d['detector_invocations'], 1):.4f}x; "
+          f"lane occupancy {st['batch']['occupancy']:.4f}; launches {launches}")
+    for tid, t in tenants.items():
+        rep = t.to_dict()
+        print(f"    {tid} (class {t.select_id}, budget {t.row_obj.budget}): {rep['results']} results in {rep['steps']} "
+              f"frames; first result {rep['ttfr_s'] if rep['ttfr_s'] is None else round(rep['ttfr_s'], 3)} s; "
+              f"projected {t.projected_s:.1f} s, settled {t.actual_s:.1f} s")
+    solo_s = 0.0
+    for tid in (wave1[0], wave2[0]):
+        t = tenants[tid]
+        row = t.row_obj
+        carry = init_carry(init_state(chunks.length, device=cuda),
+                           init_matcher(max_results=MATCHER_CAPACITY, device=cuda), t.key)
+        t1 = time.perf_counter()
+        solo = SearchPlan(result_limit=MULTI_PLAN["result_limit"], max_steps=row.budget, cohorts=cohorts,
+                          method="exact").run(carry, chunks, detector=lambda k, f, c=t.select_id: filter_class(
+                              repo, oracle_detect(repo, f, query_class=None), c))
+        solo_s += time.perf_counter() - t1
+        a, b = row.carry, solo.carry
+        pairs = [("step", a.step, b.step), ("results", a.results, b.results), ("key", a.key, b.key),
+                 ("n1", a.sampler.n1, b.sampler.n1), ("n", a.sampler.n, b.sampler.n),
+                 ("times_seen", a.matcher.times_seen, b.matcher.times_seen)]
+        diffs = [f for f, x, y in pairs if not bits_equal(x.cpu(), y.cpu())]
+        if diffs:
+            fail(f"{name}: {tid} (budget {row.budget}) != its solo scan on {diffs}")
+    late = tenants[wave2[0]].row_obj.budget
+    if late >= SERVICE_PLANS[1]["max_steps"]:
+        fail(f"{name}: {wave2[0]} was not debited ({late})")
+    print(f"  {name}: {wave1[0]} and {wave2[0]} (admitted late, debited to {late} frames) == their solo scans on "
+          f"the card (step, results, key, n1, n, times_seen; {solo_s:.2f} s)")
+    ttfr = [t.slo_report()["ttfr_s"] for t in tenants.values()]
+    return launches, dict(wall_s=wall, frames=frames, frames_per_s=frames / wall, tenants=len(tenants),
+                          pool_rows=len(driver.rows), slot_batches=d["slots"], processed_batches=len(processed),
+                          invocations=d["detector_invocations"], cache_hits=d["cache_hits"],
+                          amortization=frames / max(d["detector_invocations"], 1),
+                          occupancy=st["batch"]["occupancy"], ttfr_max_s=max((v for v in ttfr if v is not None), default=None),
+                          spent_s=st["budget"]["spent_s"])
+
+
+def service_http_path(torch) -> None:
+    """The HTTP front on 127.0.0.1, port 0, over a small service on the
+    card (the front's own ``build_service``, dashcam(0.02)): two submits by
+    POST, ``GET /stats``, a drain; every answer ``ok`` JSON, then
+    ``shutdown()``."""
+    import argparse
+    import threading
+    import urllib.request
+
+    from repro_torch.launch.serve_http import make_server
+    from repro_torch.launch.serve_search import build_service
+
+    args = argparse.Namespace(dataset="dashcam", scale=0.02, seed=0, budget_s=float("inf"), cohorts=4, workers=2,
+                              max_steps=100_000, max_results=512, slots_per_batch=4, cache=True, device="cuda")
+    service = build_service(args)
+    server = make_server(service, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    service.start()
+    t0 = time.perf_counter()
+
+    def call(obj=None, path=""):
+        req = urllib.request.Request(base + path, data=None if obj is None else json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="GET" if obj is None else "POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.loads(resp.read().decode())
+        if out.get("ok") is not True:
+            fail(f"HTTP front: {obj or path} answered {out}")
+        return out
+
+    try:
+        for tid, cls in (("h0", 0), ("h1", 7)):
+            call({"op": "submit", "tenant": tid, "class": cls, "seed": cls, "plan": {
+                "result_limit": 10, "max_steps": 1200, "cohorts": 4, "execution": {"queries_axis": True}}})
+        call(path="/stats")
+        done = call({"op": "drain", "deadline_s": 120})
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        thread.join(timeout=5.0)
+    got = {tid: (t["state"], t["results"], t["steps"]) for tid, t in done["tenants"].items()}
+    if any(state != "finished" or results < 1 for state, results, _ in got.values()):
+        fail(f"HTTP front: {got}")
+    print(f"  HTTP front on the card: 2 submits, GET /stats and a drain, every answer ok JSON; {got}; "
+          f"{time.perf_counter() - t0:.2f} s; shut down")
+
+
 def async_compose_bench_path(torch) -> None:
     """``repro_torch.bench.async_compose --quick`` on the card; its 2x gate
     raises."""
@@ -2408,6 +2621,10 @@ def main() -> int:
     async_launches, async_metrics = async_path(torch, "bdd(scale=1.0) async", bdd(scale=1.0))
     phase("bench async_compose --quick on the card (gate 2x):")
     async_compose_bench_path(torch)
+    phase(f"service, bdd(scale=1.0): {len(MULTI_CLASSES)} tenants in two waves of {SERVICE_WAVE} on one live driver, "
+          f"W = {ASYNC_WORKERS}, method exact; then the HTTP front:")
+    service_launches, service_metrics = service_path(torch, "bdd(scale=1.0) service", bdd(scale=1.0))
+    service_http_path(torch)
 
     serve_launches, serve_metrics = {}, {}
     for family, cell in SERVE_CELLS.items():
@@ -2469,7 +2686,7 @@ def main() -> int:
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
     phase("done; the summary lines follow")
     print(json.dumps({"index": {k: v for k, v in index_metrics.items() if k != "launches"},
-                      "async_multi": async_multi_metrics, "async": async_metrics}))
+                      "async_multi": async_multi_metrics, "async": async_metrics, "service": service_metrics}))
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
@@ -2480,6 +2697,7 @@ def main() -> int:
                                    "greedy": baseline_launches["greedy"],
                                    "index_warm_multi": index_metrics["launches"],
                                    "async_multi": async_multi_launches, "async": async_launches,
+                                   "service": service_launches,
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")

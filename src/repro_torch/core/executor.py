@@ -4,7 +4,9 @@ Counterpart of ``repro.core.executor``: ``lower(plan)`` resolves a
 :class:`~repro_torch.core.plan.SearchPlan` with the reference's own rules
 and ``LoweredPlan.run`` executes the ``host``, ``scan``, ``multi``,
 ``async`` or ``async_multi`` driver, returning a :class:`SearchResult`
-with the same :class:`SearchStats` the reference fills for those kinds.
+with the same :class:`SearchStats` the reference fills for those kinds;
+``tenant_stats_from_row`` packages one slot of the async driver the same
+way for the tenant service.
 A plan's ``execution.index`` (or an open index passed to ``run``) binds a
 :class:`~repro_torch.index.RepositoryIndex`: the Thompson warm start, the
 multi kind's cache preload and the write-back after the run.  The mesh
@@ -106,6 +108,24 @@ def lower(plan: SearchPlan) -> "LoweredPlan":
             f"({_LATER_SLICES[kind]} of the port); this package runs the "
             "'host', 'scan', 'multi', 'async' and 'async_multi' kinds", field="execution")
     return LoweredPlan(plan=plan, kind=kind, method=method)
+
+
+def tenant_stats_from_row(row) -> SearchStats:
+    """One ``AsyncMultiSearchDriver`` row (live or vacated) as the
+    :class:`SearchStats` a solo run reports, for the tenant service.
+    Detector calls and cache hits are the row's by dedup representative:
+    a frame another tenant's lane represented appears in neither.  Reads
+    the carry's step and ring totals to host ints."""
+    return SearchStats(
+        detector_invocations=int(row.fresh_calls),
+        cache_hits=int(row.cache_hits),
+        rounds=int(row.rounds),
+        frames_sampled=int(row.carry.step),
+        results_spilled=len(row.log),
+        index_hits=int(row.index_hits),
+        warm_rounds_saved=int(row.warm_rounds_saved),
+        **_matcher_totals(row.carry),
+    )
 
 
 def _matcher_totals(carry: ExSampleCarry) -> dict:

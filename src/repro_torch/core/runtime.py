@@ -799,6 +799,13 @@ class AsyncMultiSearchDriver:
         with self._lock:
             return not self._inflight and not any(r.active for r in self.rows)
 
+    def on_driver(self):
+        """A context in which the calling thread works on the driver's
+        stream: what it reads of the rows and the cache is ordered after
+        every merge queued so far, and what it makes is ordered before the
+        next issue.  A no-op on the CPU."""
+        return self._streams.on_driver()
+
     def service_tick(self, timeout: float = 0.1) -> bool:
         """One scheduler heartbeat: issue what is issuable, merge at most
         one completed batch, sweep for stragglers.  Returns True if a

@@ -1,14 +1,17 @@
-"""Serving substrate: the device half of the multi-query batcher (the
-dedup of a round's frames and the detection cache), and the LM's prefill
-and decode steps (``serve_step``).  The host-side ``RequestBatcher`` and
-the hash-sharded cache come with later slices."""
+"""Serving substrate: the request batcher, the multi-query driver's dedup
+and detection cache (``batcher``), the tenant service over the async slot
+driver (``service``), and the LM's prefill and decode steps
+(``serve_step``).  The hash-sharded cache comes with a later slice."""
 from repro_torch.serve.batcher import (
+    Batch,
     DetectionCache,
+    PendingFrame,
+    RequestBatcher,
     cache_insert,
     cache_lookup,
     dedup_first_index,
     init_detection_cache,
 )
 
-__all__ = ["dedup_first_index", "DetectionCache", "init_detection_cache", "cache_lookup",
-           "cache_insert"]
+__all__ = ["PendingFrame", "Batch", "RequestBatcher", "dedup_first_index", "DetectionCache",
+           "init_detection_cache", "cache_lookup", "cache_insert"]

@@ -1,10 +1,17 @@
-"""Device-side dedup and detection cache of the multi-query driver.
+"""Request batcher, and the multi-query driver's dedup and detection cache.
 
-Counterpart of the device half of ``repro.serve.batcher``
-(``dedup_first_index``, ``DetectionCache``, ``init_detection_cache``,
-``cache_lookup``, ``cache_insert``).  Detections are any tree of tensors
-the port's detectors return (a ``Detections`` NamedTuple, or a dict),
-each leaf with a leading batch axis.
+Counterpart of ``repro.serve.batcher`` but its hash-sharded cache, which
+comes with the mesh:
+
+  * the host half, ``RequestBatcher`` (with ``PendingFrame`` and
+    ``Batch``): frame requests merged into fixed-size batches, padded
+    with sentinel frames, a late frame joining a later batch (a cohort is
+    never a barrier); plain numpy, as the reference's;
+  * the device half, ``dedup_first_index``, ``DetectionCache``,
+    ``init_detection_cache``, ``cache_lookup`` and ``cache_insert``.
+    Detections are any tree of tensors the port's detectors return (a
+    ``Detections`` NamedTuple, or a dict), each leaf with a leading batch
+    axis.
 
 One difference in form: the reference's ``cache_insert`` returns a new
 cache; the port updates the cache's tensors in place and returns the
@@ -16,10 +23,85 @@ drops (see there).  Lookups never reach it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, Optional
 
+import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class PendingFrame:
+    frame_id: int
+    chunk_id: int
+    cohort: int
+    enqueue_round: int
+
+
+@dataclasses.dataclass
+class Batch:
+    frame_ids: np.ndarray     # i64[B] (sentinel = -1 padding)
+    chunk_ids: np.ndarray     # i64[B]
+    valid: np.ndarray         # bool[B]
+    cohorts: np.ndarray       # i64[B]
+
+
+class RequestBatcher:
+    """Frame requests into batches of ``batch_size`` slots, oldest first,
+    the remainder padded with sentinel frames (-1).  A queue shorter than a
+    batch is ready once its oldest frame has waited ``max_wait_rounds``
+    calls of ``next_batch``."""
+
+    def __init__(self, batch_size: int, *, max_wait_rounds: int = 0):
+        self.batch_size = batch_size
+        self.max_wait_rounds = max_wait_rounds
+        self._queue: collections.deque[PendingFrame] = collections.deque()
+        self._round = 0
+        self.stats = {"batches": 0, "padded_slots": 0, "frames": 0}
+
+    def submit(self, frame_ids: Iterable[int], chunk_ids: Iterable[int], cohort: int) -> None:
+        for f, c in zip(frame_ids, chunk_ids):
+            self._queue.append(PendingFrame(int(f), int(c), cohort, self._round))
+
+    def ready(self) -> bool:
+        if not self._queue:
+            return False
+        if len(self._queue) >= self.batch_size:
+            return True
+        return (self._round - self._queue[0].enqueue_round) >= self.max_wait_rounds
+
+    def next_batch(self) -> Optional[Batch]:
+        """Emit up to ``batch_size`` frames, padding the remainder; None
+        (and no stats) when the queue is empty.  Every call is a round."""
+        self._round += 1
+        if not self._queue:
+            return None
+        take = min(self.batch_size, len(self._queue))
+        items = [self._queue.popleft() for _ in range(take)]
+        pad = self.batch_size - take
+        self.stats["batches"] += 1
+        self.stats["padded_slots"] += pad
+        self.stats["frames"] += take
+        return Batch(
+            frame_ids=np.asarray([i.frame_id for i in items] + [-1] * pad, np.int64),
+            chunk_ids=np.asarray([i.chunk_id for i in items] + [-1] * pad, np.int64),
+            valid=np.asarray([True] * take + [False] * pad, bool),
+            cohorts=np.asarray([i.cohort for i in items] + [-1] * pad, np.int64),
+        )
+
+    @property
+    def occupancy(self) -> float:
+        """Share of emitted slots that carried a real frame: ``1 −
+        padding_fraction()``, so 1.0 before any batch."""
+        return 1.0 - self.padding_fraction()
+
+    def padding_fraction(self) -> float:
+        """Share of emitted slots that were padding (0.0 before any batch)."""
+        b = self.stats["batches"]
+        if not b:
+            return 0.0
+        return self.stats["padded_slots"] / (b * self.batch_size)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -921,3 +921,103 @@ def test_async_search_on_the_card_keeps_its_invariants(card):
     assert int(out.step) == int(out.sampler.n.sum()) == 8 * driver.stats["merges"]
     assert int((out.matcher.times_seen > 0).sum()) == int(out.results)
     assert match_update.launches - before == sum(processed)
+
+
+def _card_service(card, detector_of, *, workers=4):
+    """A small tenant service on the card: dashcam(0.02), cohorts of 8, a
+    class-agnostic oracle with ``class_select`` over the classes."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.serve.service import SearchService
+    from repro_torch.sim import class_select, generate
+
+    repo, chunks = generate(dashcam(scale=0.02).repo, device=card)
+    proto = tcore.init_carry_multi(tcore.init_state(chunks.length, device=card),
+                                   tcore.init_matcher(max_results=SEARCH_RING, device=card),
+                                   torch.stack([prng.PRNGKey(0, device=card)]))
+    num_classes = int(repo.inst_class.max()) + 1
+    service = SearchService(proto, chunks, detector_of(repo), select=class_select(repo, list(range(num_classes))),
+                            cohorts=8, num_workers=workers, slots_per_batch=2, cache_frames=chunks.total_frames)
+    return service, repo, chunks
+
+
+def test_service_on_the_card_equals_the_solo_scans(card):
+    """Three tenants, one admitted after two pool rounds, through the
+    background pump and 4 worker streams: each equals its solo scan on the
+    card at its debited budget, in each of five services (a read of a row
+    not ordered after its merge would show as a difference)."""
+    import time
+
+    from repro_torch import core as tcore
+    from repro_torch.serve.service import FINISHED
+    from repro_torch.sim import filter_class, oracle_detect
+
+    def plan():
+        return tcore.SearchPlan(result_limit=12, max_steps=480, cohorts=8,
+                                execution=tcore.Execution(queries_axis=True))
+
+    classes = {"a": 0, "b": 7, "late": 3}
+    for rep in range(5):
+        service, repo, chunks = _card_service(card, lambda r: (lambda k, f: oracle_detect(r, f, query_class=None)))
+        service.start(pump=True)
+        try:
+            service.submit("a", plan(), seed=rep, select_id=classes["a"])
+            service.submit("b", plan(), seed=rep + 100, select_id=classes["b"])
+            t0 = time.monotonic()
+            while service.driver.pool_rounds() < 2 and time.monotonic() - t0 < 60:
+                time.sleep(0.002)
+            service.submit("late", plan(), seed=rep + 200, select_id=classes["late"])
+            service.drain(deadline_s=120.0)
+        finally:
+            service.stop()
+        for tid, cls in classes.items():
+            t = service.tenants[tid]
+            assert t.state == FINISHED
+            row = t.row_obj
+            solo = tcore.SearchPlan(result_limit=12, max_steps=row.budget, cohorts=8, method="exact").run(
+                tcore.init_carry(tcore.init_state(chunks.length, device=card),
+                                 tcore.init_matcher(max_results=SEARCH_RING, device=card), t.key),
+                chunks, detector=lambda k, f, c=cls: filter_class(repo, oracle_detect(repo, f, query_class=None), c))
+            a, b = row.carry, solo.carry
+            pairs = [(getattr(a.sampler, f), getattr(b.sampler, f)) for f in ("n1", "n")]
+            pairs += [(getattr(a.matcher, f), getattr(b.matcher, f)) for f in RING_FIELDS]
+            pairs += [(a.key, b.key), (a.step, b.step), (a.results, b.results)]
+            for x, y in pairs:
+                x, y = x.cpu(), y.cpu()
+                assert torch.equal(_bits(x) if x.dtype == torch.float32 else x,
+                                   _bits(y) if y.dtype == torch.float32 else y), (rep, tid)
+            assert int(row.carry.results) == int((row.carry.matcher.times_seen > 0).sum()) + len(row.log)
+        assert service.tenants["late"].row_obj.budget < 480
+        assert len(service.driver.rows) <= 3 and abs(service.budget.committed_s) < 1e-9
+
+
+def test_a_raising_detector_stops_the_service_on_the_card(card):
+    import threading
+    import time
+
+    from repro_torch import core as tcore
+    from repro_torch.launch.serve_search import handle_request
+    from repro_torch.serve.service import ServiceFailure
+    from repro_torch.sim import oracle_detect
+
+    def detector_of(repo):
+        def det(key, frame):
+            if threading.current_thread() is not threading.main_thread():
+                raise RuntimeError("detector failed on a worker")
+            return oracle_detect(repo, frame, query_class=None)
+
+        return det
+
+    service, _, _ = _card_service(card, detector_of, workers=2)
+    service.start(pump=True)
+    try:
+        service.submit("a", tcore.SearchPlan(result_limit=12, max_steps=480, cohorts=8,
+                                             execution=tcore.Execution(queries_axis=True)), seed=1, select_id=0)
+        t0 = time.monotonic()
+        with pytest.raises(ServiceFailure, match="detector failed on a worker"):
+            service.drain(deadline_s=60.0)
+        assert time.monotonic() - t0 < 20 and not service.busy()
+        resp = handle_request(service, {"op": "drain"})
+        assert resp["ok"] is False and "detector failed on a worker" in resp["error"]
+    finally:
+        service.stop()

@@ -48,7 +48,8 @@ def test_no_jax_or_reference_imports_in_the_source():
     assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/ref.py", "index/store.py", "index/priors.py", "core/runtime.py",
             "core/distributed.py", "distributed/fault_tolerance.py", "examples/quickstart.py",
-            "bench/async_compose.py"} <= modules
+            "bench/async_compose.py", "serve/service.py", "serve/batcher.py", "launch/serve_search.py",
+            "launch/serve_http.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -71,7 +72,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.bench import async_compose, multiquery, savings
     from repro_torch.examples import quickstart
     from repro_torch.device import resolve
-    from repro_torch.launch import search, serve
+    from repro_torch.launch import search, serve, serve_http, serve_search
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve()
@@ -96,7 +97,40 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "phi3-medium-14b", "--reduced", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "mamba2-370m", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_search.main(["--scale", "0.02"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_http.main(["--scale", "0.02", "--port", "0"])
+    assert serve_search.build_parser().parse_args([]).device == "cuda"
     assert resolve("cpu").type == "cpu"
+
+
+def test_service_fronts_run_on_the_cpu_when_asked(capsys, monkeypatch):
+    """The stdin front with ``--device cpu``: one answer a request line,
+    EOF drains, the summary on stderr; the HTTP front's parser takes the
+    same flags."""
+    import io
+    import json
+
+    from repro_torch.launch import serve_http, serve_search
+
+    lines = [
+        {"op": "submit", "tenant": "a", "class": 0, "seed": 1,
+         "plan": {"result_limit": 3, "max_steps": 400, "cohorts": 4, "execution": {"queries_axis": True}}},
+        {"op": "submit", "tenant": "big", "class": 1,
+         "plan": {"result_limit": 3, "max_steps": 900_000, "cohorts": 4, "execution": {"queries_axis": True}}},
+        {"op": "stats"},
+    ]
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(json.dumps(x) for x in lines) + "\n"))
+    serve_search.main(["--device", "cpu", "--scale", "0.02", "--budget-s", "500"])
+    out, err = capsys.readouterr()
+    answers = [json.loads(line) for line in out.splitlines()]
+    assert [a["ok"] for a in answers] == [True, True, True]
+    assert answers[0]["state"] == "running" and answers[1]["state"] == "rejected"
+    assert "on cpu" in err and "tenant a: finished" in err and "service: clean drain" in err
+    ap = serve_http.build_parser()
+    ap.add_argument("--port", type=int, default=8080)
+    assert ap.parse_args(["--device", "cpu", "--port", "0"]).device == "cpu"
 
 
 def test_cli_runs_on_the_cpu_when_asked(capsys):
