@@ -18,7 +18,11 @@ the bdd multi path (cold equal to no index, warm with no detector call and one c
 a prior-warmed scan card against CPU), the async_multi kind (8 queries, 4 worker threads on
 their own streams, each query equal to the multi run), the async kind (its merge invariants,
 and a synchronous drive card against CPU) and repro_torch.bench.async_compose --quick (its 2x
-gate); then the tenant service (8 tenants of bdd(1.0) in two waves of 4 on one live driver: no result
+gate); then the mesh (bdd(1.0) over 8 shards of the card: the sharded kind at sync_every 1 and 4 and
+the composed multi_sharded kind, each held exactly to the same run on the CPU through that run's
+pinned digest; repro_torch.bench.plan_compose's full workload against pinned counts; the CLI's
+--kill-worker path, resharded 8 -> 6, replayed and held to the CPU's digest);
+then the tenant service (8 tenants of bdd(1.0) in two waves of 4 on one live driver: no result
 lost, the pool no larger than a wave, the overdraft plan rejected, the ledger settled, a tenant of each
 wave equal to its solo scan) and its HTTP front; then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
@@ -45,6 +49,7 @@ import json
 import math
 import os
 import re
+import hashlib
 import shutil
 import statistics
 import subprocess
@@ -66,6 +71,11 @@ TF32_OPS_PER_S = 495e12          # dense tensor-core rate; 3xTF32 issues 3 produ
 ISSUE_OPS_PER_S = F32_OPS_PER_S / 2
 
 MAIN_PLAN = dict(result_limit=200, max_steps=5000, cohorts=50, method="pallas", trace_every=256)
+# the frames over which the scan and multi paths are held to the CPU (the card runs the plans' full budgets
+# beside): the CPU's plain matcher step at ring 8,192 makes the full budgets ~40 s and ~110-150 s of CPU,
+# and 2,000 and 500 frames still ~20 s and ~80-170 s, which the script's 1,200 s has no room for beside
+# the mesh phase; 20 rounds of the bdd scan and 4 of each multi query
+MAIN_CHECK_STEPS, MULTI_CHECK_STEPS = 1000, 200
 HOST_CHECK_PLAN = dict(result_limit=40, max_steps=400, cohorts=8, method="pallas", trace_every=64)
 MATCHER_CAPACITY = 8192
 # the multi-query path: 2 predicates x 4 users, the mix of
@@ -76,15 +86,15 @@ MULTI_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, 
                   execution=dict(queries_axis=True, cache=-1))
 SOLO_CHECK_STEPS = 400
 # the baselines (core/baselines.py) at the main path's query: bdd(1.0), class 0, the
-# oracle; random+ held to the CPU over its first BASELINE_CHECK_STEPS frames
-BASELINE_LIMIT, BASELINE_STEPS, BASELINE_CHECK_STEPS = 200, 5000, 2000
+# oracle; random+ held to the CPU over its first BASELINE_CHECK_STEPS frames (~11 ms of CPU a frame)
+BASELINE_LIMIT, BASELINE_STEPS, BASELINE_CHECK_STEPS = 200, 5000, 500
 # repro_torch.bench.multiquery's full workload, from CPU runs of the JAX package's
 # benchmarks/bench_multiquery.py multi arm and of the port's run(quick=False), which agree
 MULTIQUERY_PINNED = dict(seq_results=[31, 31, 31, 31, 30, 30, 30, 30], multi_results=[31, 31, 31, 31, 30, 30, 30, 30],
                          seq_steps=[8192] * 8, multi_steps=[8192] * 8, detector_invocations=9520,
                          cache_hits=53207, rounds=1024, frames_sampled=65536)
 # rounds between two reads of the exit test, swept on the bdd scan
-ROUNDS_PER_SYNC_SWEEP = (1, 2, 4, 8, 16)
+ROUNDS_PER_SYNC_SWEEP = (1, 4, 16)
 # the async runtime's worker threads, each on its own CUDA stream
 ASYNC_WORKERS = 4
 # the async kind's synchronous drive, card against CPU: cohorts issued, processed and merged in one order
@@ -103,6 +113,32 @@ SERVICE_PLANS = (dict(result_limit=MULTI_PLAN["result_limit"], max_steps=MULTI_P
                       cohorts=MULTI_PLAN["cohorts"]))
 SERVICE_SLOTS_PER_BATCH = 2
 SERVICE_SLO_S = 60.0
+# the mesh kinds at full width: bdd(1.0) on 8 shards of the card, 48 cohorts a round
+# (the paper's 50 does not divide by 8), the sharded cells at sync_every 1 and 4 and the
+# composed cell over the MULTI_CLASSES queries with a repository-sized cache (hash-sharded)
+MESH_SHARDS, MESH_COHORTS = 8, 48
+SHARDED_PLAN = dict(result_limit=200, max_steps=5000, cohorts=MESH_COHORTS)
+MULTI_SHARDED_PLAN = dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=2000, cohorts=MESH_COHORTS,
+                          execution=dict(queries_axis=True, shards=MESH_SHARDS, cache=-1))
+# repro_torch.bench.plan_compose's full workload (dashcam(0.05), Q = 8 x 8 shards): the composed arm's
+# per-query results and steps, detector invocations and cache hits from a CPU run of the JAX package's
+# composed plan (benchmarks/bench_plan_compose.py's, 8 forced host devices)
+PLAN_COMPOSE_PINNED = dict(comp_results=[23, 22, 23, 23, 20, 19, 20, 21], comp_steps=[2048] * 8,
+                           detector_invocations=2989, cache_hits=13205)
+# the elastic CLI: the MULTI_CLASSES queries on bdd(1.0), worker 7 of 8 silenced after 2 windows; the
+# verdict lands at window 4, the mesh shrinks to 6 shards (48 % 6 == 0) and runs windows 5-10
+ELASTIC_ARGV = ["--dataset", "bdd", "--scale", "1.0", "--queries", *map(str, MULTI_CLASSES), "--kill-worker", "7",
+                "--kill-after-windows", "2", "--plan",
+                json.dumps(dict(queries=len(MULTI_CLASSES), result_limit=200, max_steps=480, cohorts=MESH_COHORTS,
+                                execution=dict(queries_axis=True, shards=MESH_SHARDS, cache=-1)))]
+# the mesh cells' CPU runs as SHA-256 digests of what same_search compares (result_digest; the elastic CLI's
+# record: elastic_digest), printed by `python chip_smoke.py --mesh-cpu CELL` on two machines' CPUs, which
+# agree: run live, the four CPU references (~60-160 s each, the plain matcher step at ring 8,192) pushed this
+# script past 1,100 s of its 1,200
+MESH_PINNED = dict(sharded1="d6268cf5cd7b75c08dec05e0e2046aff7c8e3d5375d8ebd7d7283453953ead13",
+                   sharded4="2d9eec59857f4219b9c5ae48b576cb0cbc1c780e452296fb59fa6ace6f7c457f",
+                   multi_sharded="a534d5878c16f22a18ba7bb3a40bc5ed70015caee8650b6020784aa221515c75",
+                   elastic="5c61a453da64e4217c2dfcc06bf5f09a5fdf945fb3b8da70f47e5cb2fb736726")
 # the scan whose Thompson prior the repository index warms (prior_weight > 0), card against CPU
 PRIOR_SCAN_PLAN = dict(MAIN_PLAN, max_steps=1000)
 PRIOR_WEIGHT = 50.0
@@ -118,7 +154,8 @@ MATCH_SHAPES = ((16, 8192), (13, 1000), (1, 1))
 MATCH_BATCHED_SHAPES = ((8, 16, 8192), (3, 13, 1000))
 # the fused Thompson round's kernel-phase rows, (C, M) and (Q, C, M): the scan's
 # dashcam (50, 22) and bdd (50, 1000), the multi path's (8, 50, 1000) and a
-# small batch (3, 50, 22); each on a search's statistics ("sampler", ~20% of
+# small batch (3, 50, 22) (the mesh paths' shard shares, (48, 125) and
+# (8, 48, 125), are checked in the mesh phase: mesh_winners_check); each on a search's statistics ("sampler", ~20% of
 # chunks exhausted) and on a fresh state ("fresh", chunk 0 exhausted: about
 # half the draws exactly 0, tied); batched, the last query has every chunk
 # exhausted
@@ -440,9 +477,13 @@ def check_b1_build(info: dict) -> None:
 
 WITNESS = "spin_kernel"        # the kernel of torch.cuda._sleep
 SPARE = "FillFunctor"          # in the name of the kernel of Tensor.fill_
+# fills a capture of kernels_a_call launches, and waits for, before its witnesses
+SPARES = 16
+# kernels_a_call's tally: its captures, the fewest leading fills one of them kept, its retakes
+CAPTURES = dict(captures=0, fewest_fills_kept=SPARES, retakes=0)
 
 
-def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
+def kernels_a_call(fn, *, tries: int = 5) -> list[str]:
     """The device kernels one call of ``fn`` launches, by name (profiler).
 
     The call is bracketed by witness kernels (``torch.cuda._sleep``), two on
@@ -450,9 +491,12 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
     longer at each try).  A capture that lacks any of the four witnesses, or
     holds a kernel of ``fn`` outside them, lost device activities and is
     taken again, up to ``tries`` times; the check fails if none was whole.
-    A fill launched first, before the witnesses, is not counted either way:
-    a capture has been seen to drop its first device activity in each of
-    three tries, which then cost a witness."""
+    A capture has been seen to lose its first device activities, one, two or
+    more of them, and in every try of one call: so each starts with SPARES
+    fills, waited for before the witnesses, which take that loss; the fills
+    that remain ahead of the first witness are not counted.  Before a retake
+    a throwaway capture of one fill closes the profiler's session once more.
+    CAPTURES tallies the captures, the fewest fills one kept, the retakes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -460,10 +504,17 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
     spare = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(tries):
-        pad = CAPTURE_PAD_S * 4 ** attempt
+        pad = CAPTURE_PAD_S * 2 ** attempt
+        if attempt:
+            CAPTURES["retakes"] += 1
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                spare.fill_(0.0)
+                torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
-            spare.fill_(0.0)
+            for _ in range(SPARES):
+                spare.fill_(0.0)
+            torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
             fn()
@@ -472,13 +523,16 @@ def kernels_a_call(fn, *, tries: int = 3) -> list[str]:
             torch.cuda.synchronize()
             time.sleep(pad)
         names = [e.name for e in sorted(device_events(prof), key=lambda e: e.time_range.start)]
-        if names and SPARE in names[0]:
-            names = names[1:]
+        kept = next((i for i, n in enumerate(names) if SPARE not in n), len(names))
+        names = names[kept:]
+        CAPTURES["captures"] += 1
+        CAPTURES["fewest_fills_kept"] = min(CAPTURES["fewest_fills_kept"], kept)
         spin = [WITNESS in n for n in names]
         if sum(spin) == 4 and spin[:2] == [True, True] and spin[-2:] == [True, True]:
             return names[2:-2]
-        print(f"  (profiler capture saw {sum(spin)} of its 4 witness kernels and {len(names)} device "
-              f"activities, in the order {['w' if w else 'k' for w in spin]}; taken again)")
+        print(f"  (profiler capture kept {kept} of its {SPARES} leading fills and saw {sum(spin)} of its 4 "
+              f"witness kernels among {len(names)} device activities after them, in the order "
+              f"{['w' if w else 'k' for w in spin]}; taken again)")
     fail(f"the profiler saw {fn} bracketed by its 4 witness kernels in none of {tries} captures")
 
 
@@ -625,6 +679,8 @@ def check_kernels(torch) -> dict:
     check_batched_kernels(torch, rows)
     check_match_update(torch, rows)
     check_round_kernels(torch, rows)
+    print(f"  kernels_a_call so far: {CAPTURES['captures']} profiler captures, the fewest leading fills one kept "
+          f"{CAPTURES['fewest_fills_kept']} of {SPARES}, {CAPTURES['retakes']} retakes")
     return rows
 
 
@@ -1187,14 +1243,17 @@ def loop_launches(name, res, counted: dict, per_round: dict, live_rounds: int) -
 
 
 def main_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
-    """The scan kind at ``MAIN_PLAN`` on the card, held exactly to the CPU;
-    returns (launches, metrics)."""
+    """The scan kind at ``MAIN_PLAN`` on the card; the same search cut to
+    ``MAIN_CHECK_STEPS`` frames held exactly to the CPU; returns
+    (launches, metrics)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cohorts = MAIN_PLAN["cohorts"]
     reset_launches()
     gpu, gpu_s, m = run_search(torch, setup, MAIN_PLAN, cuda, detector=detector)
     counted = read_launches()
-    ref, cpu_s, _ = run_search(torch, setup, MAIN_PLAN, cpu, detector=detector)
+    check = dict(MAIN_PLAN, max_steps=MAIN_CHECK_STEPS)
+    card_check = run_search(torch, setup, check, cuda, detector=detector)[0]
+    ref, cpu_s, _ = run_search(torch, setup, check, cpu, detector=detector)
     frames = gpu.steps[0]
     rounds = frames // cohorts
     for (s, r) in gpu.trace:
@@ -1204,13 +1263,13 @@ def main_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
         fail(f"{name}: non-finite sampler state")
     if gpu.results[0] <= 0 or frames <= 0:
         fail(f"{name}: the search found nothing ({gpu.results}, {gpu.steps})")
-    diffs = same_search(gpu, ref)
+    diffs = same_search(card_check, ref)
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
+    cf = ref.steps[0]
     print(f"  {name}: M={m} chunks, {gpu.results[0]} results in {frames} frames / {rounds} rounds; "
-          f"card == CPU exactly; card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s "
-          f"({gpu_s:.2f} s), CPU {frames / cpu_s:.1f} frames/s {rounds / cpu_s:.2f} rounds/s "
-          f"({cpu_s:.2f} s)")
+          f"card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s ({gpu_s:.2f} s); cut to "
+          f"{MAIN_CHECK_STEPS} frames, card == CPU exactly, CPU {cf / cpu_s:.1f} frames/s ({cf} frames, {cpu_s:.2f} s)")
     launches = loop_launches(name, gpu, counted, {"thompson_round": 1, "match_update": cohorts}, rounds)
     if any(v for k, v in launches.items() if k not in ("thompson_round", "match_update")):
         fail(f"{name}: launches {launches}: only thompson_round and match_update may run")
@@ -1366,15 +1425,18 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
 
 
 def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict, object]:
-    """The full-width multi-query search on the card, held exactly to the
-    same search on the CPU; the batched fused round must run once per round
+    """The full-width multi-query search on the card, and the same search
+    cut to ``MULTI_CHECK_STEPS`` frames a query held exactly to the CPU;
+    the batched fused round must run once per round
     (the z-taking B2 never) and the batched fused matcher step once per
     cohort slot.  Returns (launches, metrics, the card's SearchResult)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     reset_launches()
     gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda, detector=detector)
     counted = read_launches()
-    ref, cpu_s, _ = run_multi(torch, setup, MULTI_PLAN, cpu, detector=detector)
+    check = dict(MULTI_PLAN, max_steps=MULTI_CHECK_STEPS)
+    card_check = run_multi(torch, setup, check, cuda, detector=detector)[0]
+    ref, cpu_s, _ = run_multi(torch, setup, check, cpu, detector=detector)
     st = gpu.stats
     rounds, frames, cohorts = st.rounds, st.frames_sampled, MULTI_PLAN["cohorts"]
     for trace in gpu.traces:
@@ -1386,14 +1448,15 @@ def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict, objec
         fail(f"{name}: the search found too little ({gpu.results}, {st})")
     if frames != sum(gpu.steps) or st.detector_invocations > frames:
         fail(f"{name}: inconsistent accounting {st}")
-    diffs = same_search(gpu, ref)
+    diffs = same_search(card_check, ref)
     if diffs:
         fail(f"{name}: card run != CPU run on {diffs}")
+    cf = ref.stats.frames_sampled
     print(f"  {name}: M={m} chunks, Q={len(MULTI_CLASSES)} classes {list(MULTI_CLASSES)}; results "
-          f"{list(gpu.results)} in steps {list(gpu.steps)}; {rounds} rounds; card == CPU exactly "
-          f"(steps, results, traces, stats, samplers, rings, keys, cache tag)")
+          f"{list(gpu.results)} in steps {list(gpu.steps)}; {rounds} rounds; cut to {MULTI_CHECK_STEPS} frames a "
+          f"query, card == CPU exactly (steps, results, traces, stats, samplers, rings, keys, cache tag)")
     print(f"    card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s ({gpu_s:.2f} s); "
-          f"CPU {frames / cpu_s:.1f} frames/s {rounds / cpu_s:.2f} rounds/s ({cpu_s:.2f} s); "
+          f"CPU {cf / cpu_s:.1f} frames/s ({cf} frames, {cpu_s:.2f} s); "
           f"{frames} frames sampled, {st.detector_invocations} detector invocations, "
           f"{st.cache_hits} cache hits (hit rate {st.cache_hit_rate:.4f}), "
           f"amortization {st.amortization:.4f}x")
@@ -1597,6 +1660,274 @@ def multiquery_bench_path(torch) -> None:
           f"{r['frames_sampled'] / r['multi_wall']:.1f} frames/s ({r['multi_wall']:.2f} s)")
     if ratio < 2.0:
         fail(f"bench multiquery: amortization {ratio:.2f}x below the 2x gate")
+
+
+# ------------------------------------------------------------------- the mesh
+
+def mesh_inputs(name: str, device):
+    """(repository, chunks, carry, detector, select) of a mesh cell on
+    ``device``: bdd(1.0), a ring of MATCHER_CAPACITY, the keys the CLI
+    uses; ``sharded*`` one query of class 0, ``multi_sharded`` the
+    MULTI_CLASSES queries over one class-agnostic detector."""
+    import torch
+
+    from repro_torch.configs.exsample_paper import bdd
+    from repro_torch.core import init_carry, init_carry_multi, init_matcher, init_state, prng
+    from repro_torch.sim import class_select, generate, oracle_detect
+
+    repo, chunks = generate(bdd(scale=1.0).repo, device=device)
+    state = init_state(chunks.length, device=device)
+    matcher = init_matcher(max_results=MATCHER_CAPACITY, device=device)
+    key = prng.PRNGKey(0, device=device)
+    if name.startswith("sharded"):
+        return (repo, chunks, init_carry(state, matcher, key), lambda k, f: oracle_detect(repo, f, query_class=0),
+                None)
+    keys = torch.stack([prng.fold_in(key, q) for q in range(len(MULTI_CLASSES))])
+    return (repo, chunks, init_carry_multi(state, matcher, keys),
+            lambda k, f: oracle_detect(repo, f, query_class=None), class_select(repo, MULTI_CLASSES))
+
+
+def mesh_plan(name: str) -> dict:
+    if name == "multi_sharded":
+        return MULTI_SHARDED_PLAN
+    return dict(SHARDED_PLAN, execution=dict(shards=MESH_SHARDS, sync_every=int(name[len("sharded"):])))
+
+
+def mesh_run(torch, name: str, device):
+    """One mesh cell through ``SearchPlan.run`` on ``device`` (8 shards
+    there).  Returns (SearchResult, wall seconds of plan.run)."""
+    from repro_torch.core import SearchPlan
+
+    _, chunks, carry, det, select = mesh_inputs(name, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = SearchPlan.from_dict(mesh_plan(name)).run(carry, chunks, detector=det, select=select)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def elastic_cli(device: str):
+    """The search CLI's ``--kill-worker`` path (ELASTIC_ARGV) on ``device``,
+    in this process.  Returns (the runner, its standard output)."""
+    import io
+
+    from repro_torch.launch import search
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        runner = search.main(ELASTIC_ARGV + ["--device", device])
+    return runner, out.getvalue()
+
+
+def elastic_record(runner) -> dict:
+    """What the card's elastic run is held to: the final carry, the traces,
+    the counters, the reshard events and the final cache's tags."""
+    st = runner.stats
+    return dict(carry=runner.carry, traces=runner.traces, num_shards=runner.num_shards,
+                stats={k: st[k] for k in ("detector_invocations", "cache_hits", "index_hits", "rounds", "merges",
+                                          "merge_high_water", "merge_overflow", "frames_sampled", "reshard_events")},
+                tag=runner._cache.tag[:runner._cache.capacity])
+
+
+def _hash_tensors(h, tensors) -> None:
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.numpy().tobytes())
+
+
+def carry_tensors(c) -> list:
+    """The carry's tensors :func:`same_carry` compares, in its order."""
+    return ([getattr(c.sampler, f) for f in ("n1", "n", "frames")]
+            + [getattr(c.matcher, f) for f in ("boxes", "feats", "video", "frame", "chunk", "times_seen", "cursor",
+                                               "total_inserted")]
+            + [c.key, c.step, c.results])
+
+
+def result_digest(res) -> str:
+    """SHA-256 of what :func:`same_search` compares: steps, results, traces,
+    every ``SearchStats`` field, the carry's tensors bit for bit and the
+    final cache's tags."""
+    h = hashlib.sha256(json.dumps([list(res.steps), list(res.results), res.traces,
+                                   dataclasses.asdict(res.stats)]).encode())
+    _hash_tensors(h, carry_tensors(res.carry))
+    if res.final_cache is not None:
+        _hash_tensors(h, [res.final_cache.tag[:res.final_cache.capacity]])
+    return h.hexdigest()
+
+
+def elastic_digest(rec: dict) -> str:
+    """SHA-256 of an :func:`elastic_record`: carry, traces, shard count,
+    counters and reshard events, cache tags."""
+    h = hashlib.sha256(json.dumps([rec["traces"], rec["num_shards"], rec["stats"]]).encode())
+    _hash_tensors(h, carry_tensors(rec["carry"]) + [rec["tag"]])
+    return h.hexdigest()
+
+
+def mesh_cpu_cell(name: str) -> int:
+    """``python chip_smoke.py --mesh-cpu NAME``: one mesh cell on the CPU;
+    prints its digest, which MESH_PINNED holds for the card's run."""
+    import torch
+
+    t0 = time.perf_counter()
+    if name == "elastic":
+        runner, _ = elastic_cli("cpu")
+        runner.close_traces()
+        digest = elastic_digest(elastic_record(runner))
+    else:
+        digest = result_digest(mesh_run(torch, name, torch.device("cpu"))[0])
+    print(json.dumps({"cell": name, "digest": digest, "cpu_s": round(time.perf_counter() - t0, 1)}))
+    return 0
+
+
+def mesh_winners_check(torch) -> None:
+    """The sharded choice at the mesh path's shapes: bdd(1.0)'s 1,000 chunks
+    over 8 shards (125 a shard), 48 cohorts, single and batched over the
+    MULTI_CLASSES queries; through the fused round (one launch a shard,
+    its marks mapped back) against the reference's shard body op by op on
+    the same card tensors, bit for bit, with shard 0 all exhausted and with
+    every chunk exhausted."""
+    import numpy as np
+
+    from repro_torch.core.distributed import local_cohort_winners, shard_sampler_state
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(MESH_SHARDS)
+    for q in (None, len(MULTI_CLASSES)):
+        for dead in ("shard 0", "every chunk"):
+            key, state = round_inputs(q, MESH_COHORTS, 1000, seed=(q or 1) * 17 + len(dead), kind="sampler")
+            exh = torch.zeros(state.n.shape, dtype=torch.bool, device="cuda")
+            exh[..., : 1000 // MESH_SHARDS] = True
+            if dead == "every chunk":
+                exh[...] = True
+            state = dataclasses.replace(state, n=torch.where(exh, state.frames.float(), state.n))
+            views = shard_sampler_state(state, mesh)
+            got = local_cohort_winners(key, views, mesh, cohorts=MESH_COHORTS)
+            want = local_cohort_winners(key, views, mesh, cohorts=MESH_COHORTS, plain=True)
+            if not (torch.equal(got[0], want[0]) and bits_equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+                fail(f"mesh: local_cohort_winners (Q={q}, {dead} exhausted) != its plain version")
+            # round_inputs exhausts the last of Q queries everywhere
+            live = torch.full(got[1].shape[:-1], dead == "shard 0", dtype=torch.bool, device="cuda")
+            if q is not None:
+                live[-1] = False
+            if not torch.equal(torch.isfinite(got[1]).all(-1), live) or bool((torch.isinf(got[1]).any(-1) & live).any()):
+                fail(f"mesh: local_cohort_winners (Q={q}, {dead} exhausted): live rows {live.tolist()}, scores "
+                     f"{got[1].tolist()}")
+            if bool((got[0][live] < 1000 // MESH_SHARDS).any()) or bool(got[0][~live].any()):
+                fail(f"mesh: local_cohort_winners (Q={q}, {dead} exhausted) chose {got[0].tolist()}")
+    print(f"  local_cohort_winners at ({MESH_COHORTS}, {1000 // MESH_SHARDS}) a shard x {MESH_SHARDS}, single and "
+          f"Q={len(MULTI_CLASSES)}: the fused round's path == the reference's shard body op by op, bit for bit, "
+          "with shard 0 exhausted and with every chunk exhausted")
+
+
+def mesh_launch_check(name, counted: dict, want: dict) -> dict:
+    got = {k: v for k, v in counted.items() if v}
+    if got != want:
+        fail(f"mesh: {name} launched {got}, want {want}")
+    return got
+
+
+def mesh_path(torch) -> tuple[dict, dict]:
+    """The mesh kinds at full width on 8 shards of the card: the bdd(1.0)
+    sharded cells at sync_every 1 and 4 and the composed cell, each held
+    exactly to the same run on the CPU through its pinned digest
+    (MESH_PINNED); repro_torch.bench.plan_compose full against the pinned
+    counts; the elastic CLI killing worker 7 of 8, replayed, and held to
+    the CPU's digest.  Returns (launches by cell, metrics)."""
+    cuda = torch.device("cuda")
+    mesh_winners_check(torch)
+    launches, metrics, digests = {}, {}, {}
+    for name in ("sharded1", "sharded4", "multi_sharded"):
+        reset_launches()
+        res, wall = mesh_run(torch, name, cuda)
+        counted = read_launches()
+        st = res.stats
+        rounds = st.merges * (1 if name == "multi_sharded" else int(name[len("sharded"):]))
+        if name == "multi_sharded":
+            want = {"thompson_round_batched": MESH_SHARDS * rounds,
+                    "match_update_batched": MESH_COHORTS * rounds}
+        else:
+            want = {"thompson_round": MESH_SHARDS * rounds, "match_update": MESH_COHORTS * rounds}
+        launches[name] = mesh_launch_check(name, counted, want)
+        frames = st.frames_sampled
+        if min(res.results) <= 0 or frames <= 0 or st.merges <= 0:
+            fail(f"mesh: {name} found nothing ({res.results}, {st})")
+        if not all(math.isfinite(v) for v in res.carry.sampler.n1.reshape(-1).tolist()):
+            fail(f"mesh: {name}: non-finite sampler state")
+        digests[name] = result_digest(res)
+        metrics[name] = dict(frames=frames, results=list(res.results), wall_s=wall, frames_per_s=frames / wall,
+                             merges=st.merges, merge_high_water=st.merge_high_water, rounds=rounds,
+                             invocations=st.detector_invocations, cache_hits=st.cache_hits)
+        extra = (f"; {st.detector_invocations} detector invocations, {st.cache_hits} cache hits (hit rate "
+                 f"{st.cache_hit_rate:.4f}), amortization {st.amortization:.4f}x" if name == "multi_sharded" else "")
+        print(f"  {name}: bdd(scale=1.0), {MESH_SHARDS} shards x {MESH_COHORTS // MESH_SHARDS} cohorts, results "
+              f"{list(res.results)} in {frames} frames; {st.merges} merges, ring high water {st.merge_high_water}"
+              f"{', OVERFLOW' if st.merge_overflow else ''}; card {frames / wall:.1f} frames/s ({wall:.2f} s)"
+              f"{extra}; launches {launches[name]}")
+
+    from repro_torch.bench import plan_compose
+
+    reset_launches()
+    t0 = time.perf_counter()
+    r = plan_compose.run(quick=False, device="cuda")
+    pc_wall = time.perf_counter() - t0
+    launches["plan_compose"] = {k: v for k, v in read_launches().items() if v}
+    got = {k: r[k] for k in PLAN_COMPOSE_PINNED}
+    if got != PLAN_COMPOSE_PINNED:
+        fail(f"mesh: bench plan_compose {got} != the pinned {PLAN_COMPOSE_PINNED}")
+    ratio = plan_compose.gates(r)
+    metrics["plan_compose"] = dict(ratio=ratio, seq_wall_s=r["seq_wall"], comp_wall_s=r["comp_wall"],
+                                   invocations=r["detector_invocations"], cache_hits=r["cache_hits"])
+    print(f"  bench plan_compose (full): composed == sequential-sharded per query {r['comp_results']}; "
+          f"{r['detector_invocations']} detector invocations and {r['cache_hits']} cache hits == the pinned counts; "
+          f"ratio {ratio:.4f}x (gate 2x); sequential arm {sum(r['seq_steps']) / r['seq_wall']:.1f} frames/s "
+          f"({r['seq_wall']:.2f} s), composed {r['frames_sampled'] / r['comp_wall']:.1f} frames/s "
+          f"({r['comp_wall']:.2f} s), {pc_wall:.1f} s in all")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    runner, text = elastic_cli("cuda")
+    el_wall = time.perf_counter() - t0
+    shards, merges, windows = MESH_SHARDS, runner.stats["merges"], 0
+    want = {"thompson_round_batched": 0, "match_update_batched": MESH_COHORTS * merges}
+    for ev in runner.stats["reshard_events"] + [dict(window=merges, to_shards=None)]:
+        want["thompson_round_batched"] += shards * (ev["window"] - windows)
+        shards, windows = ev["to_shards"], ev["window"]
+    launches["elastic"] = mesh_launch_check("elastic", read_launches(), want)
+    runner.close_traces()
+    first = elastic_record(runner)
+    digests["elastic"] = elastic_digest(first)
+    if "8 -> 6 shards" not in text or "finished on 6 shards" not in text:
+        fail(f"mesh: the elastic CLI did not reshard 8 -> 6 and finish on 6 shards:\n{text}")
+    replay, text2 = elastic_cli("cuda")
+    replay.close_traces()
+    diffs = elastic_diffs(elastic_record(replay), first)
+    if diffs or text2.splitlines()[:-1] != text.splitlines()[:-1]:
+        fail(f"mesh: the elastic replay differs on {diffs}")
+    for line in text.splitlines():
+        if line.startswith("elastic:"):
+            print(f"    {line}")
+    metrics["elastic"] = dict(wall_s=el_wall, results=runner.carry.results.tolist(),
+                              invocations=runner.stats["detector_invocations"], events=runner.stats["reshard_events"])
+    print(f"  elastic CLI on the card: {el_wall:.2f} s; the replay of the death schedule == the first run "
+          "(carry, traces, counters, reshard events, cache tags)")
+
+    diffs = [name for name, d in digests.items() if d != MESH_PINNED[name]]
+    if diffs:
+        fail(f"mesh: the card's runs of {diffs} != the CPU's: digests {digests}, pinned {MESH_PINNED}")
+    print(f"  card == CPU exactly on {sorted(digests)} (their digests == the pinned digests of CPU runs: trace, "
+          "steps, results, stats, samplers, rings, keys, cache tags; elastic: carry, traces, counters, events)")
+    return launches, metrics
+
+
+def elastic_diffs(a: dict, b: dict) -> list[str]:
+    diffs = same_carry(a["carry"], b["carry"])
+    diffs += [k for k in ("traces", "num_shards", "stats") if a[k] != b[k]]
+    if not bits_equal(a["tag"].cpu(), b["tag"].cpu()):
+        diffs.append("cache.tag")
+    return diffs
 
 
 # ------------------------------------------- repository index, async runtime
@@ -2517,6 +2848,9 @@ def main() -> int:
         sys.path.insert(0, str(SRC))
     import torch
 
+    if sys.argv[1:2] == ["--mesh-cpu"]:
+        return mesh_cpu_cell(sys.argv[2])
+
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2621,6 +2955,10 @@ def main() -> int:
     async_launches, async_metrics = async_path(torch, "bdd(scale=1.0) async", bdd(scale=1.0))
     phase("bench async_compose --quick on the card (gate 2x):")
     async_compose_bench_path(torch)
+    phase(f"mesh, bdd(scale=1.0) on {MESH_SHARDS} shards of the card, {MESH_COHORTS} cohorts: the sharded kind at "
+          f"sync_every 1 and 4, the composed kind (Q = {len(MULTI_CLASSES)}, cache -1), each card == CPU; bench "
+          "plan_compose full against the pinned counts; the elastic CLI killing worker 7 of 8, replayed:")
+    mesh_launches, mesh_metrics = mesh_path(torch)
     phase(f"service, bdd(scale=1.0): {len(MULTI_CLASSES)} tenants in two waves of {SERVICE_WAVE} on one live driver, "
           f"W = {ASYNC_WORKERS}, method exact; then the HTTP front:")
     service_launches, service_metrics = service_path(torch, "bdd(scale=1.0) service", bdd(scale=1.0))
@@ -2685,8 +3023,11 @@ def main() -> int:
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend") if k in row})
     phase("done; the summary lines follow")
+    print(f"kernels_a_call: {CAPTURES['captures']} profiler captures, the fewest leading fills one kept "
+          f"{CAPTURES['fewest_fills_kept']} of {SPARES}, {CAPTURES['retakes']} retakes")
     print(json.dumps({"index": {k: v for k, v in index_metrics.items() if k != "launches"},
-                      "async_multi": async_multi_metrics, "async": async_metrics, "service": service_metrics}))
+                      "async_multi": async_multi_metrics, "async": async_metrics, "service": service_metrics,
+                      "mesh": mesh_metrics}))
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
@@ -2698,6 +3039,10 @@ def main() -> int:
                                    "index_warm_multi": index_metrics["launches"],
                                    "async_multi": async_multi_launches, "async": async_launches,
                                    "service": service_launches,
+                                   "sharded": mesh_launches["sharded1"], "sharded_sync4": mesh_launches["sharded4"],
+                                   "multi_sharded": mesh_launches["multi_sharded"],
+                                   "plan_compose": mesh_launches["plan_compose"],
+                                   "elastic": mesh_launches["elastic"],
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")

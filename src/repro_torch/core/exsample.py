@@ -33,6 +33,19 @@ batch: ``detector(keys int64[B, 2], frames int64[B]) -> Detections`` with
 a leading ``[B]``, where the reference ``jax.vmap``s a per-frame detector.
 Per query the trajectory equals the query's own ``_scan_search``.  It
 runs through the same ``_resident_loop``.
+
+The sharded driver (``_sharded_search``, DESIGN.md §8) runs one query on
+a :class:`~repro_torch.launch.mesh.DataMesh` of S shards: the chunk
+statistics split M/S a shard, each shard with a full-width delta buffer
+of its unsynced updates and its own ring.  Each round the globally
+consistent choice (``core.distributed.local_cohort_winners``: one fused
+Thompson launch a shard, then a gather) picks ``cohorts`` chunks and
+shard s processes cohorts ``[s·C/S, (s+1)·C/S)``; every ``sync_every``
+rounds the deltas are summed over the shards and the rings folded into
+the shared snapshot.  The rounds run eagerly, the shards one after
+another; the host reads the continue test once a sync window, where the
+reference's ``while_loop`` tests it, so the run stops at the same sync
+boundary.
 """
 from __future__ import annotations
 
@@ -705,3 +718,213 @@ def _multi_search(
         "loop": loop,
     }
     return mc, traces, stats
+
+
+# ---------------------------------------------------------------------------
+# Sharded driver: statistics over a data mesh (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+
+def _check_mesh_geometry(num_shards: int, cohorts: int | None, sync_every: int) -> int:
+    """``cohorts`` (default: one frame a shard) after the mesh drivers'
+    checks: a positive multiple of the shards, and ``sync_every`` ≥ 1."""
+    if cohorts is None:
+        cohorts = num_shards
+    if cohorts < num_shards or cohorts % num_shards:
+        raise ValueError(f"cohorts={cohorts} must be a positive multiple of the {num_shards} 'data' shards")
+    if sync_every < 1:
+        raise ValueError(f"sync_every={sync_every} must be >= 1")
+    return cohorts
+
+
+def _mesh_trace_cap(max_steps: int, cohorts: int, sync_every: int) -> int:
+    """The mesh drivers' trace rows: one a sync window, at most 4,096."""
+    return min(max_steps // max(cohorts * sync_every, 1) + 3, 4096)
+
+
+def _trace_close(trace: list, entry: tuple, cap: int) -> list:
+    """The mesh drivers' final trace entry: written only where the trace
+    would miss the end state — an empty trace, or one that reached the
+    cap (the last row is overwritten)."""
+    if not trace:
+        return [entry]
+    if len(trace) >= cap:
+        return trace[:cap - 1] + [entry]
+    return trace
+
+
+def _matcher_sync(matchers: list, snap: MatcherState, mesh, m: int, fdt):
+    """The window's matcher sync, common to both mesh drivers: the rings
+    gathered, the exact k−1 add-back of one seen-once → seen-twice
+    transition fired on k shards (``corr``, full width ``[..., M]``), the
+    rings folded into shard 0's in shard order against ``snap``, and the
+    insertions each shard folded (``[S, ...]``).  Returns (merged ring,
+    corr, inserted), replicated on ``mesh.device``."""
+    from repro_torch.core.distributed import all_gather
+    from repro_torch.core.matcher import merge_matcher
+
+    dev = mesh.device
+    ms = [mt.to(dev) for mt in matchers]
+    g = {f: all_gather([getattr(mt, f) for mt in ms], mesh)[0]
+         for f in ("video", "frame", "times_seen", "total_inserted")}
+    same_e = (g["video"] == snap.video[None]) & (g["frame"] == snap.frame[None])
+    trans = same_e & (snap.times_seen[None] == 1) & (g["times_seen"] >= 2)
+    k = trans.sum(0)
+    over = torch.clamp_min(k - 1, 0).to(fdt)
+    live = k > 0
+    home = torch.where(live, snap.chunk, torch.zeros_like(snap.chunk)).long()
+    lead = k.shape[:-1]
+    if lead:  # [Q, R]: row q's homes offset into the flattened [Q, M]
+        home = home + torch.arange(lead[0], device=dev)[:, None] * m
+    corr = torch.zeros(lead + (m,), dtype=fdt, device=dev).reshape(-1).index_add_(
+        0, home.reshape(-1), torch.where(live, over, torch.zeros_like(over)).reshape(-1)).reshape(lead + (m,))
+    merged = ms[0]
+    for src in ms[1:]:
+        merged = merge_matcher(merged, src, snap)
+    return merged, corr, g["total_inserted"] - snap.total_inserted[None]
+
+
+def _sharded_search(
+    carry: ExSampleCarry,
+    chunks: ChunkIndex,
+    *,
+    mesh,
+    detector: DetectorFn,
+    result_limit: int,
+    max_steps: int,
+    cohorts: int | None = None,
+    sync_every: int = 1,
+):
+    """One query over ``mesh`` (DESIGN.md §8): the reference's
+    ``_search_sharded_device`` and ``_sharded_search``.
+
+    ``cohorts`` is the global batch a round (default one frame a shard)
+    and must divide over the shards; the chunk statistics are padded to
+    the shard count with exhausted dummies and trimmed on the way out.
+    The choice is Wilson–Hilferty (the fused round on the card).  Each
+    window runs ``sync_every`` rounds; each round every shard views its
+    slice plus its own pending deltas, the winners are gathered, and the
+    replicated random+ rank dedup (occurrence in the round plus the
+    window's earlier picks by non-owner shards) gives every pick of a
+    chunk in a window its own rank.  Shard s then processes its cohorts,
+    detector key ``fold_in(k_det, g)`` for global cohort g; a −inf winner
+    (everything exhausted) runs the detector with every update gated off.
+    At the window's end the deltas are summed, the rings folded, the k−1
+    duplicate-d₁ add-back applied, ring pressure recorded, and the
+    continue test read on the host.  Returns ``(carry', trace, stats)``:
+    one trace entry a window (at most ``_mesh_trace_cap``), the final
+    entry only where the trace would miss the end state, and stats
+    ``merge_high_water``, ``merge_overflow`` and ``merges``."""
+    from repro_torch.core.distributed import combine_winners, pad_chunks, psum, shard_sampler_state, shard_winners
+
+    s_n = mesh.size
+    cohorts = _check_mesh_geometry(s_n, cohorts, sync_every)
+    m0 = carry.sampler.num_chunks
+    shards = shard_sampler_state(pad_chunks(carry.sampler, s_n), mesh)
+    lm = shards[0].num_chunks
+    m = lm * s_n
+    per_shard = cohorts // s_n
+    cap = _mesh_trace_cap(max_steps, cohorts, sync_every)
+    dev, devs = mesh.device, mesh.devices
+    fdt = shards[0].n.dtype
+    a0, b0 = carry.sampler.alpha0, carry.sampler.beta0
+    n1_l, n_l, frames_l = [s.n1 for s in shards], [s.n for s in shards], [s.frames for s in shards]
+    chunks = chunks.to(dev)
+    key, step, results = carry.key.to(dev), carry.step.to(dev), carry.results.to(dev)
+    snap = carry.matcher.to(dev)
+    matchers = [snap.to(d) for d in devs]
+    pshard = torch.arange(cohorts, dtype=torch.int32, device=dev) // per_shard
+    hw = torch.zeros((), dtype=torch.int32, device=dev)
+    ov = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def continues() -> torch.Tensor:
+        exh = [(n >= f.to(fdt)).all().int() for n, f in zip(n_l, frames_l)]
+        all_exhausted = psum(exh, mesh)[0] == s_n
+        return (results < result_limit) & (step < max_steps) & ~all_exhausted
+
+    def one_round(key, dn1, dn, foreign, matchers, lstep, lres):
+        ks = prng.split(key, 3)
+        key = ks[0]
+        # in one threefry: fold_in(k_choice, s) for each shard s and
+        # fold_in(k_det, g) for each global cohort g (split's counters)
+        sub = prng.split(ks[1:], max(s_n, cohorts))
+        views = [SamplerState(n1=n1_l[s] + dn1[s][s * lm:(s + 1) * lm], n=n_l[s] + dn[s][s * lm:(s + 1) * lm],
+                              frames=frames_l[s], alpha0=a0, beta0=b0) for s in range(s_n)]
+        with record_function("exsample.choose"):
+            c_ids, c_scores, c_n = combine_winners(
+                [shard_winners(sub[0, s].to(d), views[s], s, cohorts) for s, d in enumerate(devs)], mesh)
+            live_c = torch.isfinite(c_scores)
+            owner = c_ids // lm
+            same_before = torch.tril(c_ids[:, None] == c_ids[None, :], diagonal=-1)
+            occ = (same_before & live_c[None, :]).sum(1)
+            ranks = (c_n + foreign[c_ids.long()].to(fdt) + occ.to(fdt)).int()
+            foreign = foreign.index_add(0, c_ids.long(), ((pshard != owner) & live_c).int())
+            det_keys = sub[1, :cohorts]
+            # every cohort's frame and video, replicated: they read only the
+            # winners and their ranks
+            frame_ids = randomplus_frame(chunks, c_ids, ranks)
+            videos = torch.take(chunks.video_id, c_ids.long())
+            upd_c = live_c.to(fdt)
+        for s, d in enumerate(devs):
+            g = slice(s * per_shard, (s + 1) * per_shard)
+            cids, frames_s, videos_s = c_ids[g].to(d), frame_ids[g].to(d), videos[g].to(d)
+            live_s, keys_s, upd = live_c[g].to(d), det_keys[g].to(d), upd_c[g].to(d)
+            outs = []
+            for j in range(per_shard):
+                with record_function("exsample.detect"):
+                    dets = detector(keys_s[j], frames_s[j])
+                with record_function("exsample.match"):
+                    mres = match_and_update(matchers[s], dets.boxes, dets.feats, dets.valid & live_s[j],
+                                            videos_s[j], frames_s[j], cids[j])
+                matchers[s] = mres.new_state
+                outs.append(mres)
+            # the shard's updates in one go: every delta is a count, so the
+            # sums are exact in any order
+            with record_function("exsample.update"):
+                d0 = torch.stack([o.d0 for o in outs])
+                dn1[s].index_add_(0, cids.long(),
+                                  (d0 - torch.stack([o.d1 - o.cross_chunk for o in outs])).to(fdt) * upd)
+                dn[s].index_add_(0, cids.long(), upd)
+                home = torch.stack([o.cross_home for o in outs])
+                valid_home = home >= 0
+                dn1[s].index_add_(0, torch.where(valid_home, home, torch.zeros_like(home)).long().reshape(-1),
+                                  -valid_home.to(fdt).reshape(-1))
+                lstep[s] = lstep[s] + live_s.int().sum().int()
+                lres[s] = lres[s] + d0.sum().int()
+        return key, foreign
+
+    trace, windows = [], 0
+    matcher = snap
+    cont = bool(continues())
+    while cont:
+        dn1 = [torch.zeros((m,), dtype=fdt, device=d) for d in devs]
+        dn = [torch.zeros((m,), dtype=fdt, device=d) for d in devs]
+        foreign = torch.zeros((m,), dtype=torch.int32, device=dev)
+        lstep = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
+        lres = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
+        for _ in range(sync_every):
+            key, foreign = one_round(key, dn1, dn, foreign, matchers, lstep, lres)
+        with record_function("exsample.sync"):
+            tot1, tot = psum(dn1, mesh), psum(dn, mesh)
+            n1_l = [n1_l[s] + tot1[s][s * lm:(s + 1) * lm] for s in range(s_n)]
+            n_l = [n_l[s] + tot[s][s * lm:(s + 1) * lm] for s in range(s_n)]
+            matcher, corr, inserted = _matcher_sync(matchers, snap, mesh, m, fdt)
+            n1_l = [n1_l[s] + corr[s * lm:(s + 1) * lm].to(d) for s, d in enumerate(devs)]
+            hw = torch.maximum(hw, inserted.max())
+            ov = ov | (inserted >= snap.capacity).any()
+            step = step + psum(lstep, mesh)[0]
+            results = results + psum(lres, mesh)[0]
+            snap, matchers = matcher, [matcher.to(d) for d in devs]
+            windows += 1
+            go, s_h, r_h = torch.stack([continues().int(), step, results]).tolist()
+        if len(trace) < cap:
+            trace.append((s_h, r_h))
+        cont = bool(go)
+    trace = _trace_close(trace, (int(step), int(results)), cap)
+    out = ExSampleCarry(
+        sampler=dataclasses.replace(carry.sampler, n1=torch.cat([x.to(dev) for x in n1_l])[:m0],
+                                    n=torch.cat([x.to(dev) for x in n_l])[:m0], frames=carry.sampler.frames),
+        matcher=matcher, key=key, step=step, results=results,
+    )
+    stats = {"merge_high_water": int(hw), "merge_overflow": bool(ov), "merges": windows}
+    return out, trace, stats

@@ -3,10 +3,9 @@
 Counterpart of ``repro.core.plan``: ``SearchPlan`` (WHAT to search) and
 ``Execution`` (HOW to run it), their typed ``PlanError`` family, serde and
 ``resolve()`` are copied whole, so a plan dict validates and resolves to
-the same ``(kind, method)`` in both packages.  ``lower()`` binds the
-single-device kinds (``host``, ``scan``, ``multi``, ``async``,
-``async_multi``), which this package implements; the mesh kinds raise
-``PlanCompatibilityError`` naming the port slice they wait for.
+the same ``(kind, method)`` in both packages.  ``lower()`` binds every
+kind: ``host``, ``scan``, ``multi``, ``async``, ``async_multi`` and the
+mesh kinds ``sharded`` and ``multi_sharded``.
 """
 from __future__ import annotations
 
@@ -425,12 +424,13 @@ class SearchPlan:
 
         return lower(self)
 
-    def run(self, carry, chunks, *, detector, select=None, index=None):
+    def run(self, carry, chunks, *, detector, select=None, mesh=None, index=None):
         """``lower()`` + execute.  See
-        :meth:`repro_torch.core.executor.LoweredPlan.run`; ``index`` passes
-        an open :class:`~repro_torch.index.RepositoryIndex` instead of
-        opening one from ``execution.index``."""
-        return self.lower().run(carry, chunks, detector=detector, select=select, index=index)
+        :meth:`repro_torch.core.executor.LoweredPlan.run`; ``mesh`` gives
+        the mesh kinds their :class:`~repro_torch.launch.mesh.DataMesh`,
+        ``index`` an open :class:`~repro_torch.index.RepositoryIndex`
+        instead of opening one from ``execution.index``."""
+        return self.lower().run(carry, chunks, detector=detector, select=select, mesh=mesh, index=index)
 
     # ---- serde ------------------------------------------------------------
 

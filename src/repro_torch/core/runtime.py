@@ -1,7 +1,7 @@
 """Asynchronous search runtime: worker threads around Algorithm 1.
 
-Counterpart of ``repro.core.runtime`` (both tiers; the elastic mesh's
-``ElasticShardedRunner`` comes with the mesh slice of the port):
+Counterpart of ``repro.core.runtime``: both async tiers and the elastic
+mesh's runner.
 
   * :class:`AsyncSearchDriver`, one query: the driver owns the carry and
     issues cohorts of chunks chosen from its freshest statistics; N
@@ -20,6 +20,10 @@ Counterpart of ``repro.core.runtime`` (both tiers; the elastic mesh's
     its solo scan run at any worker count (deterministic detector).
 
 Both spill ring evictions to a host ``ResultLog`` at merge boundaries.
+
+:class:`ElasticShardedRunner` drives the composed mesh kind in bounded
+slices of sync windows and shrinks the mesh when a worker's heartbeat
+stops (DESIGN.md §14).
 
 **One thread queues work at a time.**  A reference worker makes one
 jitted call a cohort or batch; a port worker queues its cohort's or
@@ -848,3 +852,184 @@ class AsyncMultiSearchDriver:
     @property
     def logs(self) -> list:
         return [row.log for row in self.rows]
+
+
+class ElasticShardedRunner:
+    """Elastic mesh-shrink recovery for the composed sharded driver
+    (DESIGN.md §14): the reference's runner over the port's
+    ``run_search_multi_sharded`` and ``HeartbeatMonitor``.
+
+    Runs the driver in slices of ``sync_windows`` windows; each slice
+    returns a resumable carry and the cache in the direct-mapped layout.
+    Between slices the live workers heartbeat and the monitor is swept.  A
+    dead verdict is acted on at the boundary the runner stands on (the
+    window in flight always completes, so no merged result is lost):
+
+      1. the largest shard count k ≤ the survivors with ``cohorts % k ==
+         0``, validated by ``plan_resize`` (empty schema);
+      2. ``resize_chunk_stats`` strips the old padding and re-pads for k;
+      3. ``reshard_cache_host`` re-places the cache only when its padded
+         capacity changes (``warm_tag`` keeps its own modulus);
+      4. the mesh is rebuilt with k shards on the same device.
+
+    A death in the final window never reshards: the search is already
+    complete on merged state.  Replaying a death schedule gives the same
+    results.
+
+    One deliberate difference from the reference (ROADMAP C12): a query
+    that ran no window in a slice adds no trace entry.  The reference
+    extends every query's trace with each slice's, and a slice writes a
+    finished query's end state as its one entry, so its windowed traces
+    repeat that state once a later slice.  Here, as in one unbounded call,
+    each window a query ran is one entry, and a query that ran none ends
+    with its end state alone."""
+
+    def __init__(self, carries: ExSampleCarry, chunks, *, detector: Callable, result_limits, max_steps: int,
+                 num_shards: int, cohorts: Optional[int] = None, sync_every: int = 1,
+                 select: Optional[SelectFn] = None, cache_frames: int = 0, cache=None, warm_tag=None,
+                 monitor: Optional[HeartbeatMonitor] = None, clock: Callable[[], float] = time.monotonic,
+                 sync_windows: int = 1, device=None):
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.serve.batcher import reshard_cache_host
+
+        if sync_windows < 1:
+            raise ValueError(f"sync_windows={sync_windows} must be >= 1")
+        self.carry = carries
+        self.chunks = chunks
+        self.detector = detector
+        self.max_steps = int(max_steps)
+        self.num_shards = int(num_shards)
+        self.cohorts = int(cohorts) if cohorts is not None else self.num_shards
+        self.sync_every = int(sync_every)
+        self.select = select
+        self.cache_frames = int(cache_frames)
+        self.warm_tag = warm_tag
+        self.sync_windows = int(sync_windows)
+        self.clock = clock
+        self.monitor = monitor if monitor is not None else HeartbeatMonitor()
+        self.device = carries.step.device if device is None else device
+        self.mesh = make_data_mesh(self.num_shards, device=self.device)
+        q_n = carries.step.shape[0]
+        self.result_limits = np.broadcast_to(np.asarray(result_limits, np.int32), (q_n,)).copy()
+        # workers currently heartbeating; kill_worker() silences one
+        self.alive: set[int] = set(range(self.num_shards))
+        now = self.clock()
+        for w in sorted(self.alive):
+            self.monitor.register(w, now)
+        self._cache = cache          # direct-mapped between slices
+        if cache is not None:
+            cap = cache.capacity
+            self._cache = reshard_cache_host(cache, cap + (-cap) % self.num_shards)
+        self._first_call = True
+        self.traces: list[list] = [[] for _ in range(q_n)]
+        self.stats = {
+            "detector_invocations": 0, "cache_hits": 0, "index_hits": 0,
+            "rounds": 0, "merges": 0, "merge_high_water": 0,
+            "merge_overflow": False, "frames_sampled": 0,
+            "reshard_events": [], "final_cache": None,
+        }
+
+    # ---- liveness ----------------------------------------------------------
+
+    def kill_worker(self, worker: int) -> None:
+        """Stop heartbeating ``worker``: its silence starts now, the dead
+        verdict lands at a later boundary's sweep."""
+        self.alive.discard(worker)
+
+    def _live_queries(self) -> np.ndarray:
+        """The driver's live mask, on the host."""
+        c = self.carry
+        res, step = c.results.cpu().numpy(), c.step.cpu().numpy()
+        n = c.sampler.n.cpu().numpy()
+        exhausted = (n >= c.sampler.frames.cpu().numpy().astype(n.dtype)).all(axis=-1)
+        return (res < self.result_limits) & (step < self.max_steps) & ~exhausted
+
+    # ---- mesh shrink -------------------------------------------------------
+
+    def _shrink(self, dead: list) -> None:
+        from repro_torch.distributed.elastic import plan_resize, resize_chunk_stats
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.serve.batcher import reshard_cache_host
+
+        survivors = sorted(self.alive)
+        if not survivors:
+            raise RuntimeError("elastic shrink: no surviving workers")
+        new_shards = None
+        for k in range(min(len(survivors), self.num_shards), 0, -1):
+            if self.cohorts % k:
+                continue
+            if plan_resize({}, make_data_mesh(k, device=self.device), global_batch=self.cohorts).feasible:
+                new_shards = k
+                break
+        if new_shards is None:
+            raise RuntimeError(f"elastic shrink: no feasible shard count <= {len(survivors)} survivors for "
+                               f"cohorts={self.cohorts}")
+        sampler = self.carry.sampler
+        n1, n, frames = resize_chunk_stats(sampler.n1, sampler.n, sampler.frames, new_shards)
+        self.carry = dataclasses.replace(self.carry, sampler=dataclasses.replace(sampler, n1=n1, n=n, frames=frames))
+        if self._cache is not None:
+            cap = self._cache.capacity
+            self._cache = reshard_cache_host(self._cache, cap + (-cap) % new_shards)
+        self.stats["reshard_events"].append({
+            "window": self.stats["merges"], "from_shards": self.num_shards,
+            "to_shards": new_shards, "dead": sorted(dead),
+        })
+        self.num_shards = new_shards
+        self.mesh = make_data_mesh(new_shards, device=self.device)
+
+    # ---- execution ---------------------------------------------------------
+
+    def step(self) -> bool:
+        """One bounded slice and one boundary sweep; True while live
+        queries remain."""
+        from repro_torch.core.executor import run_search_multi_sharded
+
+        out, traces, stats = run_search_multi_sharded(
+            self.carry, self.chunks, mesh=self.mesh, detector=self.detector,
+            result_limits=self.result_limits, max_steps=self.max_steps, cohorts=self.cohorts,
+            sync_every=self.sync_every, select=self.select,
+            cache_frames=self.cache_frames if self._first_call else 0, cache=self._cache,
+            warm_tag=self.warm_tag, window_limit=self.sync_windows)
+        self._first_call = False
+        self.carry = out
+        self._cache = stats["final_cache"]
+        for q, t in enumerate(traces):
+            if stats["query_windows"][q]:          # C12: no window, no entry
+                self.traces[q].extend(t)
+        for k in ("detector_invocations", "cache_hits", "index_hits", "rounds", "merges"):
+            self.stats[k] += stats[k]
+        self.stats["merge_high_water"] = max(self.stats["merge_high_water"], stats["merge_high_water"])
+        self.stats["merge_overflow"] |= stats["merge_overflow"]
+        if not self._live_queries().any():
+            return False
+        now = self.clock()
+        for w in sorted(self.alive):
+            self.monitor.heartbeat(w, now)
+        verdict = self.monitor.sweep(now)
+        dead = [w for w in verdict["dead"] if w < self.num_shards]
+        if dead:
+            self._shrink(dead)
+        return True
+
+    def close_traces(self) -> None:
+        """A query that ran no window in any slice ends with its end state
+        alone, as one unbounded call writes it."""
+        for q, t in enumerate(self.traces):
+            if not t:
+                t.append((int(self.carry.step[q]), int(self.carry.results[q])))
+
+    def run(self):
+        """Drive every query to completion; returns ``(carry, traces,
+        stats)`` as ``run_search_multi_sharded`` does, plus
+        ``stats["reshard_events"]``."""
+        # a live query advances ``cohorts`` steps a window, so this many
+        # slices always suffice; more means the driver stalled
+        budget = self.max_steps // (self.cohorts * self.sync_windows) + 2
+        while self.step():
+            budget -= 1
+            if budget < 0:
+                raise RuntimeError("elastic runner made no progress")
+        self.close_traces()
+        self.stats["frames_sampled"] = int(self.carry.step.sum())
+        self.stats["final_cache"] = self._cache
+        return self.carry, self.traces, self.stats

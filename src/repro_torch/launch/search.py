@@ -1,7 +1,7 @@
 """Search CLI: ExSample distinct-object queries, end to end, on the card.
 
-Counterpart of ``repro.launch.search`` for the single-device kinds
-(``host``, ``scan``, ``multi``, ``async``, ``async_multi``):
+Counterpart of ``repro.launch.search``, every kind (``host``, ``scan``,
+``multi``, ``async``, ``async_multi``, ``sharded``, ``multi_sharded``):
 
   python -m repro_torch.launch.search --limit 50 --cohorts 16
   python -m repro_torch.launch.search --dataset bdd --scale 1.0 \\
@@ -25,6 +25,18 @@ plan's frame budget, and prints the savings (random+ frames / ExSample
 frames); not for ``multi``.  ``--device`` defaults to ``cuda`` and fails
 without a card; ``--device cpu`` runs the plain PyTorch versions of the
 kernels.
+
+A plan with ``"shards": S`` runs on a mesh of S shards on that device
+(``launch.mesh.make_data_mesh``); with ``queries_axis`` it lowers to the
+composed ``multi_sharded`` kind.  ``--kill-worker W`` (repeatable) drives
+such a plan through ``ElasticShardedRunner`` on a synthetic clock and
+silences worker W after ``--kill-after-windows`` windows; the dead verdict
+lands two boundaries later, the mesh shrinks, and the search finishes on
+the survivors:
+
+  python -m repro_torch.launch.search --dataset bdd --scale 1.0 --kill-worker 7 \\
+      --plan '{"queries": 8, "result_limit": 200, "max_steps": 2000, "cohorts": 48,
+               "execution": {"queries_axis": true, "shards": 8, "cache": -1}}'
 """
 from __future__ import annotations
 
@@ -62,7 +74,55 @@ def build_plan(args) -> SearchPlan:
                       cohorts=args.cohorts, trace_every=256)
 
 
-def main(argv=None) -> None:
+def _run_elastic_smoke(plan, carry, chunks, det, select, args):
+    """The ``--kill-worker`` path: the plan through ``ElasticShardedRunner``
+    on a synthetic clock (100 s a boundary, dead after 150 s of silence),
+    the listed workers silenced after ``--kill-after-windows`` windows.
+    Returns the runner."""
+    from repro_torch.core.runtime import ElasticShardedRunner
+    from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
+
+    ex = plan.execution
+    cache = ex.cache if ex.cache is not None else 0
+    if cache == -1:
+        cache = chunks.total_frames
+    t = [0.0]
+
+    def clock():
+        t[0] += 100.0
+        return t[0]
+
+    runner = ElasticShardedRunner(
+        carry, chunks, detector=det, result_limits=plan.result_limit, max_steps=plan.max_steps,
+        num_shards=ex.shards, cohorts=plan.cohorts, sync_every=ex.sync_every, select=select,
+        cache_frames=cache, monitor=HeartbeatMonitor(suspect_after_s=50.0, dead_after_s=150.0),
+        clock=clock, sync_windows=1)
+    t0 = time.perf_counter()
+    windows = 0
+    while True:
+        alive = runner.step()
+        windows += 1
+        if windows == args.kill_after_windows:
+            for w in args.kill_worker:
+                print(f"elastic: worker {w} silenced after window {windows}")
+                runner.kill_worker(w)
+        if not alive:
+            break
+    wall = time.perf_counter() - t0
+    out, stats = runner.carry, runner.stats
+    for ev in stats["reshard_events"]:
+        print(f"elastic: reshard @window {ev['window']}: {ev['from_shards']} -> {ev['to_shards']} shards "
+              f"(dead={ev['dead']})")
+    results = out.results.tolist()
+    print(f"elastic: finished on {runner.num_shards} shards: {sum(results)} results / "
+          f"{int(out.step.sum()):,} frames sampled / {stats['detector_invocations']:,} detector invocations "
+          f"({stats['cache_hits']:,} cache hits) (driver wall {wall:.1f}s)")
+    return runner
+
+
+def main(argv=None):
+    """Run the CLI; returns the ``SearchResult``, or with ``--kill-worker``
+    the ``ElasticShardedRunner``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--plan", default="", help="SearchPlan JSON (or @file)")
     ap.add_argument("--dataset", default="dashcam", choices=["dashcam", "bdd"])
@@ -76,13 +136,18 @@ def main(argv=None) -> None:
     ap.add_argument("--max-steps", type=int, default=50_000)
     ap.add_argument("--detector", default="oracle", choices=["oracle", "noisy"])
     ap.add_argument("--baseline", action="store_true", help="also run random+ for comparison")
+    ap.add_argument("--kill-worker", type=int, action="append", default=[], metavar="W",
+                    help="elastic-shrink smoke (multi_sharded plans only): silence worker W mid-run and "
+                         "recover on the survivors via ElasticShardedRunner (repeatable)")
+    ap.add_argument("--kill-after-windows", type=int, default=2,
+                    help="sync windows to run before the --kill-worker workers go silent")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     plan = build_plan(args)
     lowered = plan.lower()
-    multi = lowered.kind in ("multi", "async_multi")
+    multi = lowered.kind in ("multi", "multi_sharded", "async_multi")
     if args.queries and not multi:
         raise SystemExit("--queries needs a --plan that lowers to multi (queries_axis)")
     device = resolve(args.device)
@@ -113,6 +178,15 @@ def main(argv=None) -> None:
                                  torch.stack([prng.fold_in(key, q) for q in range(plan.queries)]))
     else:
         carry = init_carry(sampler, matcher, prng.PRNGKey(args.seed, device=device))
+    if plan.execution.shards > 1:
+        from repro_torch.launch.mesh import describe, make_data_mesh
+
+        print(describe(make_data_mesh(plan.execution.shards, device=device)))
+    if args.kill_worker:
+        if lowered.kind != "multi_sharded":
+            raise SystemExit("--kill-worker needs a queries_axis + shards>1 plan "
+                             f"(multi_sharded lowering, got {lowered.kind})")
+        return _run_elastic_smoke(plan, carry, chunks, det, select, args)
     t0 = time.perf_counter()
     res = lowered.run(carry, chunks, detector=det, select=select)
     wall = time.perf_counter() - t0
@@ -145,6 +219,7 @@ def main(argv=None) -> None:
         rp_results, rp_steps = int(rp.results), int(rp.step)
         print(f"random+: {rp_results} results / {rp_steps:,} frames "
               f"→ savings {rp_steps / max(st.frames_sampled, 1):.2f}x")
+    return res
 
 
 if __name__ == "__main__":

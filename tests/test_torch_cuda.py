@@ -1021,3 +1021,88 @@ def test_a_raising_detector_stops_the_service_on_the_card(card):
         assert resp["ok"] is False and "detector failed on a worker" in resp["error"]
     finally:
         service.stop()
+
+
+# ---- the mesh: the sharded choice, and the sharded and composed kinds ----------
+
+MESH_SHARDS = 8
+
+
+@pytest.mark.parametrize("q", [None, 3])
+@pytest.mark.parametrize("m,dead", [(24, "shard0"), (1000, "shard0"), (24, "all")])
+def test_local_cohort_winners_kernel_equals_plain(card, q, m, dead):
+    """The sharded choice through the fused round (one B1 or B2 launch a
+    shard, the kernel's −1 / −1e30 marks mapped back) equals the
+    reference's shard body op by op on the same card tensors, bit for bit
+    on winners, scores and rank bases: with shard 0 all exhausted, and
+    with every chunk everywhere exhausted (−inf scores, chunk 0)."""
+    from repro_torch.core.distributed import local_cohort_winners, shard_sampler_state
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(MESH_SHARDS)
+    state = _round_state(q, m, "sampler", m + (q or 0), card)
+    exh = torch.zeros(state.n.shape, dtype=torch.bool, device=card)
+    exh[..., : m // MESH_SHARDS] = True
+    if dead == "all":
+        exh[...] = True
+    state = dataclasses.replace(state, n=torch.where(exh, state.frames.float(), state.n))
+    views = shard_sampler_state(state, mesh)
+    key = _round_keys(q, m, card)
+    wrapper = thompson_round if q is None else thompson_round_batched
+    before = wrapper.launches
+    got = local_cohort_winners(key, views, mesh, cohorts=48)
+    assert wrapper.launches == before + MESH_SHARDS
+    want = local_cohort_winners(key, views, mesh, cohorts=48, plain=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(_bits(got[1]), _bits(want[1])) and torch.equal(got[2], want[2])
+    if dead == "all":
+        assert bool(torch.isneginf(got[1]).all()) and not bool(got[0].any())
+    else:
+        assert bool(torch.isfinite(got[1]).all()) and bool((got[0] >= m // MESH_SHARDS).all())
+
+
+def _mesh_search(device, multi, sync_every):
+    """dashcam(0.02) through a mesh kind on 8 shards of ``device``: the
+    sharded kind (class 7), or the composed kind over ``MULTI_CLASSES``
+    with a repository-sized cache."""
+    from repro_torch import core as tcore
+    from repro_torch.configs.exsample_paper import dashcam
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.sim import class_select, generate, oracle_detect
+
+    repo, chunks = generate(dashcam(scale=0.02).repo, device=device)
+    matcher = tcore.init_matcher(max_results=SEARCH_RING, device=device)
+    key = prng.PRNGKey(0, device=device)
+    mesh = make_data_mesh(MESH_SHARDS, device=device)
+    ex = dict(shards=MESH_SHARDS, sync_every=sync_every)
+    if not multi:
+        plan = dict(result_limit=40, max_steps=320, cohorts=16, execution=ex)
+        carry = tcore.init_carry(tcore.init_state(chunks.length, device=device), matcher, key)
+        return tcore.SearchPlan.from_dict(plan).run(
+            carry, chunks, detector=lambda k, f: oracle_detect(repo, f, query_class=7), mesh=mesh)
+    plan = dict(queries=len(MULTI_CLASSES), result_limit=[12, 12, 6, 12], max_steps=160, cohorts=8,
+                execution=dict(ex, queries_axis=True, cache=-1))
+    keys = torch.stack([prng.fold_in(key, q) for q in range(len(MULTI_CLASSES))])
+    carry = tcore.init_carry_multi(tcore.init_state(chunks.length, device=device), matcher, keys)
+    return tcore.SearchPlan.from_dict(plan).run(carry, chunks, detector=lambda k, f: oracle_detect(
+        repo, f, query_class=None), select=class_select(repo, MULTI_CLASSES), mesh=mesh)
+
+
+@pytest.mark.parametrize("sync_every", [1, 4])
+@pytest.mark.parametrize("multi", [False, True])
+def test_the_mesh_kinds_on_the_card_equal_the_cpu(card, multi, sync_every):
+    """The sharded and composed kinds on 8 shards of the card equal the
+    same on the CPU bit for bit; one fused Thompson launch a shard a round,
+    one fused matcher launch a cohort a round (batched: a shard slot)."""
+    from repro_torch.kernels import launch_counts
+
+    before = launch_counts()
+    got = _mesh_search(card, multi, sync_every)
+    counts = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    _assert_same_search(got, _mesh_search("cpu", multi, sync_every))
+    rounds = got.stats.rounds if multi else got.stats.merges * sync_every
+    if multi:
+        slots = got.plan.cohorts // MESH_SHARDS
+        assert counts == {"thompson_round_batched": MESH_SHARDS * rounds,
+                          "match_update_batched": MESH_SHARDS * slots * rounds}
+    else:
+        assert counts == {"thompson_round": MESH_SHARDS * rounds, "match_update": got.plan.cohorts * rounds}

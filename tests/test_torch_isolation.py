@@ -43,13 +43,14 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
     assert {"core", "kernels", "serve", "sim", "launch", "models", "configs", "bench", "index", "distributed",
-            "examples"} <= scanned
+            "examples", "data"} <= scanned
     modules = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/ref.py", "index/store.py", "index/priors.py", "core/runtime.py",
             "core/distributed.py", "distributed/fault_tolerance.py", "examples/quickstart.py",
             "bench/async_compose.py", "serve/service.py", "serve/batcher.py", "launch/serve_search.py",
-            "launch/serve_http.py"} <= modules
+            "launch/serve_http.py", "launch/mesh.py", "distributed/elastic.py", "data/framestore.py",
+            "bench/sharded.py", "bench/plan_compose.py", "examples/search_distributed.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -69,8 +70,8 @@ def test_entry_points_default_to_the_card():
     """Without a card, the default device is an error, not a CPU run."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    from repro_torch.bench import async_compose, multiquery, savings
-    from repro_torch.examples import quickstart
+    from repro_torch.bench import async_compose, multiquery, plan_compose, savings, sharded
+    from repro_torch.examples import quickstart, search_distributed
     from repro_torch.device import resolve
     from repro_torch.launch import search, serve, serve_http, serve_search
 
@@ -83,6 +84,17 @@ def test_entry_points_default_to_the_card():
                      '{"queries": 2, "max_steps": 8, "execution": {"queries_axis": true}}'])
     with pytest.raises(RuntimeError, match="cuda"):
         search.main(["--scale", "0.02", "--max-steps", "8", "--detector", "noisy", "--baseline"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        search.main(["--scale", "0.02", "--plan", '{"max_steps": 8, "cohorts": 4, "execution": {"shards": 4}}'])
+    with pytest.raises(RuntimeError, match="cuda"):
+        search.main(["--scale", "0.02", "--kill-worker", "1", "--plan",
+                     '{"queries": 2, "max_steps": 8, "cohorts": 4, "execution": {"queries_axis": true, "shards": 2}}'])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharded.main(["--quick"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        plan_compose.main(["--quick"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        search_distributed.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         savings.main(["--quick", "--scale", "0.02"])
     with pytest.raises(RuntimeError, match="cuda"):
@@ -179,3 +191,21 @@ def test_cli_with_an_index_prints_its_economics(capsys, tmp_path):
         for line in lines]
     assert cold_hits == 0 and cold_kept > 0
     assert warm_hits > 0 and warm_kept == 0
+
+
+def test_mesh_cli_runs_on_the_cpu_when_asked(capsys):
+    """A plan with shards lowers to the mesh kinds and, with ``--device
+    cpu``, runs on a CPU mesh."""
+    from repro_torch.launch import search
+
+    search.main(["--device", "cpu", "--scale", "0.02", "--plan",
+                 '{"result_limit": 5, "max_steps": 32, "cohorts": 8, "execution": {"shards": 4, "sync_every": 2}}'])
+    out = capsys.readouterr().out
+    assert "lowering=sharded method=wilson_hilferty" in out and "mesh(4,)" in out and "'cpu'" in out
+    assert "ExSample[sharded]" in out and "  merges: " in out
+    search.main(["--device", "cpu", "--scale", "0.02", "--queries", "7", "3", "--plan",
+                 '{"queries": 2, "result_limit": 3, "max_steps": 16, "cohorts": 8, '
+                 '"execution": {"queries_axis": true, "shards": 2, "cache": -1}}'])
+    out = capsys.readouterr().out
+    assert "lowering=multi_sharded" in out and "ExSample[multi_sharded]" in out and "query 1:" in out
+

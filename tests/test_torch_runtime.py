@@ -586,14 +586,18 @@ def test_stats_keys_exist_at_construction(compose):
 
 
 def test_lowering_runs_every_single_device_kind():
-    from repro_torch.core.executor import _LATER_SLICES
+    """Every kind lowers, the mesh kinds too since the mesh slice."""
+    import repro_torch.core.executor as texec
 
-    assert sorted(_LATER_SLICES) == ["multi_sharded", "sharded"]
+    assert not hasattr(texec, "_LATER_SLICES")
     assert tcore.SearchPlan(execution=tcore.Execution(async_workers=2)).lower().kind == "async"
     assert tcore.SearchPlan(queries=2, execution=tcore.Execution(queries_axis=True, async_workers=2)) \
         .lower().kind == "async_multi"
+    assert tcore.SearchPlan(cohorts=2, execution=tcore.Execution(shards=2)).lower().kind == "sharded"
+    assert tcore.SearchPlan(queries=2, cohorts=2, execution=tcore.Execution(queries_axis=True, shards=2)) \
+        .lower().kind == "multi_sharded"
     with pytest.raises(tcore.PlanCompatibilityError):
-        tcore.SearchPlan(execution=tcore.Execution(shards=2)).lower()
+        tcore.SearchPlan(execution=tcore.Execution(shards=2)).lower()   # cohorts 1 over 2 shards
 
 
 def test_async_multi_plan_equals_the_ports_multi(compose):

@@ -88,11 +88,8 @@ def test_plan_resolution_and_unported_kinds_raise():
         jp, tp = jcore.SearchPlan.from_dict(d), tcore.SearchPlan.from_dict(d)
         assert jp.resolve() == tp.resolve()
         assert jp.to_dict() == tp.to_dict()
-        if tp.resolve()[0] in ("host", "scan", "multi", "async", "async_multi"):
-            assert tp.lower().kind == jp.lower().kind
-        else:
-            with pytest.raises(tcore.PlanCompatibilityError, match="does not run yet"):
-                tp.lower()
+        # every kind lowers, the mesh kinds too since the mesh slice
+        assert (tp.lower().kind, tp.lower().method) == (jp.lower().kind, jp.lower().method)
     with pytest.raises(tcore.PlanValueError):
         tcore.SearchPlan(cohorts=0).resolve()
 
