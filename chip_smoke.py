@@ -26,9 +26,13 @@ then the tenant service (8 tenants of bdd(1.0) in two waves of 4 on one live dri
 lost, the pool no larger than a wave, the overdraft plan rejected, the ledger settled, a tenant of each
 wave equal to its solo scan) and its HTTP front; then serve the full-width
 phi3-medium-14b and gemma-7b LMs (prefill through kernel B4, greedy decode
-through kernel B5) and the full-width mamba2-370m (prefill through kernel
-B6, the SSD chunk scan), hold each one's decode to teacher forcing, and
-each reduced LM on the card to the same on the CPU; last, prefill
+through kernel B5), the full-width mamba2-370m (prefill through kernel
+B6, the SSD chunk scan), granite-moe-1b-a400m at full width and depth (its
+experts in plain PyTorch between B4 and B5; its prefill also through the
+stacked forward against the unrolled one) and jamba-1.5-large-398b at full
+width cut to 2 layers (B6 in both Mamba-2 layers, the MoE on the second),
+hold each one's decode to teacher forcing (an MoE model on its drop-free
+copy), and each reduced LM on the card to the same on the CPU; last, prefill
 phi3-medium-14b in bfloat16 at full depth, whose attention runs on B4's
 bf16 tensor-core ("wgmma") body.  The float32 prefills' attention, gemma's
 heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
@@ -171,17 +175,23 @@ ROUND_BATCHED_SHAPES = ((8, 50, 1000), (3, 50, 22))
 ROUND_OPS = dict(visit=2, stats=4, live=73 + 8 + 17, log1p_small=19, log1p_large=33, erfinv_lt=22,
                  erfinv_ge=23)
 # the LM serving paths, at full width in the launcher's float32, 64 greedy
-# tokens each: phi3-medium-14b (dense) and gemma-7b (dense, the launcher's
-# default arch, heads of 256) with 4 requests of a 2,048-token prompt;
-# mamba2-370m (ssm) with 4 requests of 8,192 tokens, so that each (batch,
-# head) carries its state across 8 chunks of 1,024.  ``prefill`` and
-# ``decode`` name the kernel of each step (wrapper, a key that every device
-# kernel of it holds in its name, label), ``prefill_body`` the B4 body every
-# prefill launch must take (full width and reduced), ``reduced_prompt`` the
-# prompt of the reduced model's card-against-CPU check and
-# ``reduced_head_dim`` its head width where it must stay the full model's
-# (``scale_down`` sets 64).  "ssd_scan" is in the names of all five of B6's
-# launches, "flash_attention" in those of B4's three bodies.
+# tokens each: phi3-medium-14b (dense), gemma-7b (dense, the launcher's
+# default arch, heads of 256) and granite-moe-1b-a400m (moe) with 4 requests
+# of a 2,048-token prompt; mamba2-370m (ssm) with 4 requests of 8,192
+# tokens, so that each (batch, head) carries its state across 8 chunks of
+# 1,024; jamba-1.5-large-398b (hybrid), cut in depth, one request of 2,048
+# tokens and 8 greedy tokens.  ``prefill`` and ``decode`` name the kernel of
+# the family's attention or Mamba-2 layers in each step (wrapper, a key that
+# every device kernel of it holds in its name, label), ``prefill_body`` the
+# B4 body every prefill launch must take (full width and reduced),
+# ``layers`` (where given) the depth the full-width model is cut to,
+# ``reduced_layers`` (where given) the depth of the reduced model (else
+# ``scale_down``'s 2), ``reduced_prompt`` the prompt of the reduced model's
+# card-against-CPU check and ``reduced_head_dim`` its head width where it
+# must stay the full model's (``scale_down`` sets 64); ``stacked`` runs the
+# prefill through the stacked forward too.  "ssd_scan" is in the names of
+# all five of B6's launches, "flash_attention" in those of B4's three
+# bodies.
 SERVE_CELLS = {
     "dense": dict(arch="phi3-medium-14b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
                   reduced_head_dim=None, prefill=("flash_attention", "flash_attention", "B4"),
@@ -192,6 +202,19 @@ SERVE_CELLS = {
     "ssm": dict(arch="mamba2-370m", batch=4, prompt=8192, tokens=64, reduced_prompt=64,
                 reduced_head_dim=None, prefill=("ssd_scan", "ssd_scan", "B6"), prefill_body=None,
                 decode=None),
+    # granite-moe-1b-a400m at full width and depth (5.3 GB of float32 weights); its prefill also
+    # runs through the stacked forward on the same weights restacked, against the unrolled one
+    "moe": dict(arch="granite-moe-1b-a400m", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
+                reduced_head_dim=None, prefill=("flash_attention", "flash_attention", "B4"),
+                prefill_body="wgmma_f32", decode=("flash_decode", "flash_decode_kernel", "B5"),
+                stacked=True),
+    # jamba-1.5-large-398b at full width, its 72 layers cut to 2 (the whole model does not fit
+    # one card): layer 0 Mamba-2 + the dense MLP, layer 1 Mamba-2 + the MoE (46.5 GB of float32
+    # weights); no attention layer, so no B4 or B5.  Its reduced check keeps 8 layers, which
+    # hold the attention layer (layer 7).
+    "hybrid": dict(arch="jamba-1.5-large-398b", layers=2, batch=1, prompt=2048, tokens=8, reduced_layers=8,
+                   reduced_prompt=64, reduced_head_dim=None, prefill=("ssd_scan", "ssd_scan", "B6"),
+                   prefill_body=None, decode=None),
 }
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
@@ -206,12 +229,14 @@ ATTN_RTOL = {"float32": 0.0, "bfloat16": 8e-3}
 B4_SERVE = (4, 2048, 2048, 40, 10, 128, "float32", True)
 B4_GEMMA = (4, 2048, 2048, 16, 16, 256, "float32", True)
 B4_BF16 = (1, 8192, 8192, 40, 10, 128, "bfloat16", True)
+B4_MOE = (4, 2048, 2048, 16, 8, 64, "float32", True)     # granite-moe-1b-a400m's prefill
 B4_SHAPES = (
     B4_SERVE,
     (1, 2048, 2048, 40, 10, 128, "float32", True),
     (1, 2048, 2048, 40, 10, 128, "bfloat16", True),
     B4_BF16,
     B4_GEMMA,
+    B4_MOE,
     (1, 2048, 2048, 16, 16, 256, "float32", True),       # gemma-7b's heads
     (1, 2048, 2048, 16, 16, 256, "bfloat16", True),
     (1, 1000, 1000, 40, 10, 128, "float32", True),       # ragged
@@ -233,9 +258,11 @@ BF16_PREFILL = dict(arch="phi3-medium-14b", batch=1, prompt=8192, reduced_prompt
 # the serve paths' last decode steps (64 tokens in a cache of 2048 + 64 + 1)
 B5_SERVE = (4, 40, 10, 128, 2113, "float32", (64,) * 4)
 B5_GEMMA = (4, 16, 16, 256, 2113, "float32", (64,) * 4)
+B5_MOE = (4, 16, 8, 64, 2113, "float32", (64,) * 4)        # granite-moe-1b-a400m's decode
 B5_SHAPES = (
     B5_SERVE,
     B5_GEMMA,
+    B5_MOE,
     (4, 40, 10, 128, 2113, "float32", (2113,) * 4),            # phi3's serve shape, full cache
     (8, 40, 10, 128, 32768, "float32", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
@@ -258,6 +285,7 @@ SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 # The first row is the serve path's prefill; the last the same prompt at
 # batch 1, where B6 trailed its plain version before its chunks ran in
 # parallel.
+B6_HYBRID = (1, 2048, 256, 64, 128, 1024, 1.0, "softplus")   # jamba's Mamba-2 layers: 256 heads
 B6_SHAPES = (
     (4, 8192, 32, 64, 128, 1024, 1.0, "softplus"),
     (1, 1024, 32, 64, 128, 1024, 1.0, "softplus"),           # one chunk
@@ -266,6 +294,7 @@ B6_SHAPES = (
     (2, 2048, 8, 64, 128, 1024, math.log(8.0), "softplus"),  # a = -8: exp(acs) underflows
     (2, 4096, 8, 64, 128, 1024, 0.0, "weak"),                # serve widths, 4 chunks, no underflow
     (1, 8192, 32, 64, 128, 1024, 0.0, "weak"),               # the batch-1 prefill, no underflow
+    B6_HYBRID,
 )
 # B6's five launches, by the word between "ssd_scan_" and "_kernel" in their names
 B6_PHASES = ("acs", "cb", "chunk_state", "state_pass", "chunk_scan")
@@ -2573,48 +2602,163 @@ def check_prefill_body(label: str, cell: dict, by_body: dict, layers: int) -> No
         fail(f"{label}: B4 launches by body {by_body}, expected {want}")
 
 
+def serve_config(cell: dict, *, reduced: bool):
+    """The cell's model config: full width (cut to ``layers`` where the
+    cell gives it), or reduced (``reduced_layers`` deep where given, at
+    ``reduced_head_dim`` where given)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, scale_down
+
+    cfg = ARCHS[cell["arch"]]
+    if not reduced:
+        return dataclasses.replace(cfg, num_layers=cell["layers"]) if cell.get("layers") else cfg
+    cfg = scale_down(cfg, layers=cell.get("reduced_layers") or 2)
+    if cell["reduced_head_dim"] is not None:
+        cfg = dataclasses.replace(cfg, head_dim=cell["reduced_head_dim"])
+    return cfg
+
+
+def layer_kinds(cfg) -> tuple[int, int, int]:
+    """(attention layers, Mamba-2 layers, MoE layers) of ``cfg``."""
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    return attn, cfg.num_layers - attn, moe
+
+
+def expected_launches(cfg, tokens: int) -> dict:
+    """A serve's launches: B4 once an attention layer and B6 once a Mamba-2
+    layer in the prefill, B5 once an attention layer and decoded token."""
+    attn, ssm, _ = layer_kinds(cfg)
+    want = {"flash_attention": attn, "flash_decode": attn * tokens, "ssd_scan": ssm}
+    return {k: v for k, v in want.items() if v}
+
+
+def drop_free(cfg):
+    """The same model with capacity factor E/k: every expert has a slot
+    for each token of a call, so no token is dropped."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def moe_drop_summary(steps: list) -> dict:
+    """Per step (the prefill, then each decode step), the least and the
+    largest dropped fraction over the MoE layers, and the aux losses'
+    range."""
+    import torch
+
+    out = []
+    for stats in steps:
+        d = torch.stack([s.dropped_fraction for s in stats]).cpu()
+        a = torch.stack([s.aux_loss for s in stats]).cpu()
+        out.append(dict(dropped_min=float(d.min()), dropped_max=float(d.max()),
+                        dropped_mean=float(d.mean()), layers_dropping=int((d > 0).sum()),
+                        aux_min=float(a.min()), aux_max=float(a.max())))
+    return {"prefill": out[0], "decode": out[1:]}
+
+
+def moe_split(torch, params, cfg, tokens, layers: int, n: int) -> dict:
+    """Device ms of one MoE layer's four steps on ``tokens`` (int[B, S]),
+    each timed alone by the profile and by CUDA events: the first MoE
+    layer's own input (the embedded tokens through its ``norm2``), one
+    group; router = the float32 router product and ``route`` (softmax,
+    top-k, capacity ranks, slot owners).  Times ``layers`` give the
+    step's MoE time."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import embed_tokens
+
+    i = next(i for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+    pl = params[f"layer_{i}"]
+    h = apply_norm(cfg.norm, pl["norm2"], embed_tokens(params, tokens, cfg))
+    h = h.reshape(1, -1, cfg.d_model)
+    p, m, t = pl["moe"], cfg.moe, h.shape[1]
+    c = moe.capacity(t, m)
+    logits = moe.router_logits(p, h, m)
+    r = moe.route(logits, m, c)
+    xe = moe.dispatch(h, r, m, c)
+    ye = moe.expert_ffn(p, xe, cfg.mlp)
+    def step_ms(fn):
+        # the profile's device time (the events' where it kept no device activity) and CUDA events
+        # around the calls: a profile that lost activities reads below the events
+        events = median_ms(fn, inner=n, reps=3)
+        return device_ms(fn, n=n) or events, events
+
+    timed = dict(router_logits=step_ms(lambda: moe.router_logits(p, h, m)),
+                 route=step_ms(lambda: moe.route(logits, m, c)),
+                 dispatch=step_ms(lambda: moe.dispatch(h, r, m, c)),
+                 experts=step_ms(lambda: moe.expert_ffn(p, xe, cfg.mlp)),
+                 combine=step_ms(lambda: moe.combine(ye, r, t)))
+    ms, events = ({"router": timed["router_logits"][i] + timed["route"][i],
+                   **{k: timed[k][i] for k in ("dispatch", "experts", "combine")}} for i in (0, 1))
+    mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    padded = 2.0 * m.num_experts * c * cfg.d_model * m.d_ff * mats
+    active = moe.moe_flops(t, cfg.d_model, m, cfg.mlp)
+    return dict(tokens=t, capacity=c, layer_ms=ms, step_ms={k: v * layers for k, v in ms.items()},
+                step_events_ms={k: v * layers for k, v in events.items()},
+                expert_flops=padded, active_flops=active, padding_share=1 - active / padded,
+                expert_tflops=padded / ms["experts"] / 1e9)
+
+
 def serve_path(torch, family: str) -> tuple[dict, dict]:
     """The full-width LM serving path of ``SERVE_CELLS[family]`` through the
-    launcher's functions: prefill (its kernel once per layer), greedy decode
-    (the dense family's kernel once per layer and token), a teacher-forcing
-    check of every decode step against the full forward over the fed
-    tokens, and a profile of one prefill and one decode step.  Frees the
+    launcher's functions: prefill (B4 once an attention layer, B6 once a
+    Mamba-2 layer), greedy decode (B5 once an attention layer and token), a
+    teacher-forcing check of every decode step against the full forward over
+    the fed tokens (for an MoE model, both on its drop-free copy: the real
+    capacity of a decode step's few tokens drops some), the MoE layers'
+    dropped fractions, a profile of one prefill and one decode step with
+    the MoE's steps timed apart, and, where the cell asks, the stacked
+    prefill on the same weights against the unrolled one.  Frees the
     weights before it returns."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.configs import RunConfig
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
     from repro_torch.models import mamba2
-    from repro_torch.models.transformer import forward_lm, init_params
+    from repro_torch.models.moe import capacity, moe_flops
+    from repro_torch.models.stacked import stack_params
+    from repro_torch.models.transformer import forward_lm, init_decode_cache, init_params
 
     cell = SERVE_CELLS[family]
     arch, b, prompt, n = cell["arch"], cell["batch"], cell["prompt"], cell["tokens"]
     pre_fn, pre_kernel, pre_label = cell["prefill"]
     cuda = torch.device("cuda")
     run = launcher.RUN
-    cfg = launcher.model_config(arch, reduced=False, device=cuda)
+    cfg = serve_config(cell, reduced=False)
+    n_attn, n_ssm, n_moe = layer_kinds(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    if cfg.ssm is None:
-        widths = (f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
-                  f"d_ff {cfg.d_ff}")
-    else:
+    expert_params = sum(p.numel() for name, p in params.named_parameters()
+                        if ".moe.w_" in name)
+    widths = []
+    if n_attn:
+        widths.append(f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}")
+    if n_ssm:
         d_inner, nheads, state = mamba2.mamba_dims(cfg.d_model, cfg.ssm)
-        widths = (f"{nheads} SSM heads of {cfg.ssm.head_dim}, state {state}, chunk {cfg.ssm.chunk_len}, "
-                  f"d_ff {cfg.d_ff}")
-    print(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, vocab {cfg.vocab}: "
+        widths.append(f"{nheads} SSM heads of {cfg.ssm.head_dim}, state {state}, chunk {cfg.ssm.chunk_len}")
+    widths.append(f"d_ff {cfg.d_ff}")
+    if n_moe:
+        widths.append(f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of width {cfg.moe.d_ff} on "
+                      f"{n_moe} layers, capacity factor {cfg.moe.capacity_factor}")
+    print(f"  {arch}: {cfg.num_layers} layers ({n_attn} attention, {n_ssm} Mamba-2, {n_moe} MoE), "
+          f"d_model {cfg.d_model}, {', '.join(widths)}, vocab {cfg.vocab}: "
           f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB float32), made on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     # warm the card's lazily loaded kernels (cuBLAS' heuristics) outside the timed run
     launcher.serve(params, cfg, run, launcher.make_prompt(cfg, b, 128, cuda), 2)
     batch = launcher.make_prompt(cfg, b, prompt, cuda)
 
+    stats = [] if n_moe else None
     reset_launches()
-    res = launcher.serve(params, cfg, run, batch, n, keep_logits=True)
+    res = launcher.serve(params, cfg, run, batch, n, keep_logits=True, moe_stats=stats)
     launches = read_launches()
     by_body = dict(flash_attention.launches_by_body)
     peak = torch.cuda.max_memory_allocated()
@@ -2628,64 +2772,125 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
         fail(f"serve {arch}: non-finite logits")
     if not (bool((res.tokens >= 0).all()) and bool((res.tokens < cfg.vocab).all())):
         fail(f"serve {arch}: token out of the vocabulary")
-    expect = {pre_fn: cfg.num_layers}
-    if cell["decode"] is not None:
-        expect[cell["decode"][0]] = cfg.num_layers * n
+    expect = expected_launches(cfg, n)
     if {k: v for k, v in launches.items() if v} != expect:
         fail(f"serve {arch}: launches {launches}, expected {expect}")
-    check_prefill_body(f"serve {arch}", cell, by_body, cfg.num_layers)
+    check_prefill_body(f"serve {arch}", cell, by_body, n_attn)
+    drops = None
+    if n_moe:
+        drops = moe_drop_summary(stats)
+        if len(stats) != n + 1 or any(len(s) != n_moe for s in stats):
+            fail(f"serve {arch}: MoE stats of {[len(s) for s in stats]} layers a step, expected {n_moe}")
+        pre_d, dec = drops["prefill"], drops["decode"]
+        print(f"  MoE dropped fraction, prefill: min {pre_d['dropped_min']:.4g}, max {pre_d['dropped_max']:.4g} "
+              f"over {n_moe} layers (aux loss {pre_d['aux_min']:.4f}..{pre_d['aux_max']:.4f})")
+        print(f"  MoE dropped fraction, decode steps 0..{n - 1} (capacity {capacity(b, cfg.moe)} slots an "
+              f"expert for {b} tokens): min over layers "
+              f"{[round(d['dropped_min'], 4) for d in dec]}; max {[round(d['dropped_max'], 4) for d in dec]}; "
+              f"layers dropping a step {[d['layers_dropping'] for d in dec]}")
 
     # teacher forcing: decode step t fed token t at position t == the full
-    # forward over the fed tokens at t
-    full = forward_lm(params, {"tokens": res.tokens[:, :n]}, cfg, run, mode="prefill")
-    diff = float((full - step).abs().max())
+    # forward over the fed tokens at t (an MoE model: both on its drop-free copy)
+    fed = res.tokens[:, :n]
+    tf_cfg, tf_step = cfg, step
+    if n_moe:
+        tf_cfg = drop_free(cfg)
+        tf_decode = launcher.build_decode_step(tf_cfg, run)
+        cache = init_decode_cache(tf_cfg, b, n + 1, torch.float32, cuda)
+        tf_stats, steps = [], []
+        for t in range(n):
+            _, lg, cache = tf_decode(params, fed[:, t:t + 1].contiguous(), cache, moe_stats=tf_stats)
+            steps.append(lg)
+        tf_step = torch.stack(steps, dim=1)
+        del cache, steps
+    full_stats = [] if n_moe else None
+    full = forward_lm(params, {"tokens": fed}, tf_cfg, run, mode="prefill", moe_stats=full_stats)
+    if n_moe and max(float(s.dropped_fraction) for s in tf_stats + full_stats) != 0.0:
+        fail(f"serve {arch}: the drop-free copy dropped tokens")
+    diff = float((full - tf_step).abs().max())
     scale = float(full.abs().max())
-    agree = float((full.argmax(-1) == step.argmax(-1)).float().mean())
+    agree = float((full.argmax(-1) == tf_step.argmax(-1)).float().mean())
     if not diff <= 1e-3 * scale or agree != 1.0:
         fail(f"serve {arch}: decode != teacher forcing: max |diff| {diff} (limit 1e-3 x max |logits| "
              f"{scale}), argmax agreement {agree}")
     prefill_tok_s = b * prompt / res.prefill_s
     decode_tok_s = b * n / res.decode_s
-    dec_fn = cell["decode"][0] if cell["decode"] else None
-    per = ", ".join(f"{k} {v // n} per token" if k == dec_fn else f"{k} {v} per prefill"
+    per = ", ".join(f"{k} {v // n} per token" if k == "flash_decode" else f"{k} {v} per prefill"
                     for k, v in launches.items() if v)
     print(f"  prefill [{b}x{prompt}] {res.prefill_s * 1e3:.1f} ms = {prefill_tok_s:.1f} tokens/s; "
           f"decode {n} tokens/seq in {res.decode_s * 1e3:.1f} ms = {res.decode_s * 1e3 / n:.2f} ms/step "
           f"= {decode_tok_s:.1f} tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches "
           f"{launches} ({per}; layers {cfg.num_layers})"
           + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
-    print(f"  teacher forcing over {n} steps: max |decode - forward| {diff:.4g} = "
+    print(f"  teacher forcing over {n} steps{' (the drop-free copy, capacity factor ' + str(tf_cfg.moe.capacity_factor) + ')' if n_moe else ''}: "
+          f"max |decode - forward| {diff:.4g} = "
           f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f} "
           f"(required 1)")
-    del full, step
+    del full, step, tf_step
+
+    stacked = None
+    if cell.get("stacked"):
+        prefill = launcher.build_prefill_step(cfg, run)
+        want = prefill(params, batch)
+        sparams = stack_params(params, cfg)
+        before = flash_attention.launches
+        got = launcher.build_prefill_step(cfg, RunConfig(param_dtype="float32", stacked=True))(sparams, batch)
+        ran = flash_attention.launches - before
+        sdiff, sscale = float((got - want).abs().max()), float(want.abs().max())
+        stacked = dict(bit_equal=bool(torch.equal(got, want)), max_abs_diff=sdiff, max_abs_logit=sscale,
+                       b4_launches=ran)
+        if not sdiff <= 1e-5 * sscale or ran != n_attn:
+            fail(f"serve {arch}: stacked prefill != unrolled: max |diff| {sdiff} (limit 1e-5 x {sscale}), "
+                 f"B4 launches {ran} of {n_attn}")
+        print(f"  stacked prefill ({cfg.num_layers} groups of 1 layer, weights restacked on the card) == "
+              f"unrolled: {'bit-equal' if stacked['bit_equal'] else f'max |diff| {sdiff:.3g}'} "
+              f"(limit 1e-5 x max |logits| {sscale:.4g}); B4 {ran} launches")
+        del sparams, got, want
 
     prefill = launcher.build_prefill_step(cfg, run)
     decode = launcher.build_decode_step(cfg, run)
     tok = res.tokens[:, -1:].contiguous()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    with prof:
-        with record_function("serve.prefill"):
-            prefill(params, batch)
-            torch.cuda.synchronize()
-        with record_function("serve.decode_step"):
-            decode(params, tok, res.cache)                           # position n of the cache
-            torch.cuda.synchronize()
     dec_kernel = cell["decode"]
-    pre = device_share(prof, "serve.prefill", pre_kernel)
-    dec = device_share(prof, "serve.decode_step", None if dec_kernel is None else dec_kernel[1])
-    # the projections', MLP's and last position's unembedding flops, and the
-    # bytes of weights one decode step reads
-    gemm_flops = 2 * b * prompt * (n_params - cfg.vocab * cfg.d_model) + 2 * b * cfg.d_model * cfg.vocab
+    # a capture now and then keeps no device activity in one of its spans
+    # (CAPTURE_PAD_S); the step is then profiled again, at most three times
+    for attempt in range(3):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof:
+            time.sleep(CAPTURE_PAD_S)
+            with record_function("serve.prefill"):
+                prefill(params, batch)
+                torch.cuda.synchronize()
+            with record_function("serve.decode_step"):
+                decode(params, tok, res.cache)                       # position n of the cache
+                torch.cuda.synchronize()
+            time.sleep(CAPTURE_PAD_S)
+        pre = device_share(prof, "serve.prefill", pre_kernel)
+        dec = device_share(prof, "serve.decode_step", None if dec_kernel is None else dec_kernel[1])
+        if pre["busy_ms"] > 0 and dec["busy_ms"] > 0:
+            break
+        print(f"  profile {attempt + 1} kept no device activity in a span (prefill busy {pre['busy_ms']} ms, "
+              f"decode step {dec['busy_ms']} ms): taken again")
+    else:
+        fail(f"serve {arch}: three profiles kept no device activity in a span")
+    # the projections', MLP's and last position's unembedding flops (the
+    # experts' at top_k a token, as moe_flops counts them), and the bytes
+    # of weights one decode step reads
+    gemm_flops = (2 * b * prompt * (n_params - cfg.vocab * cfg.d_model - expert_params)
+                  + 2 * b * cfg.d_model * cfg.vocab)
+    if n_moe:
+        gemm_flops += n_moe * moe_flops(b * prompt, cfg.d_model, cfg.moe, cfg.mlp)
     print(f"profile: prefill span {pre['span_ms']:.1f} ms, device busy {pre['busy_ms']:.1f} ms "
           f"(idle {100 * pre['idle']:.1f}%); cuBLAS products {pre['gemm_ms']:.1f} ms = "
-          f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}% ({gemm_flops:.4g} flops, "
+          f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}% ({gemm_flops:.4g} flops"
+          + (", experts by moe_flops" if n_moe else "") + ", "
           f"{gemm_flops / pre['gemm_ms'] / 1e9:.1f} TFLOP/s); {pre_label} {pre['kernel_ms']:.1f} ms = "
           f"{100 * pre['kernel_share']:.1f}% of the device time; the rest elementwise "
           f"{pre['busy_ms'] - pre['gemm_ms'] - pre['kernel_ms']:.1f} ms")
-    if cfg.ssm is not None:
-        mflops = cfg.num_layers * mamba2.mamba_flops(b * prompt, cfg.d_model, cfg.ssm)
+    if n_ssm:
+        mflops = n_ssm * mamba2.mamba_flops(b * prompt, cfg.d_model, cfg.ssm)
         print(f"  mamba_flops (the reference's count, projections + SSD): {mflops:.4g} for the "
-              f"prefill, {mflops / pre['busy_ms'] / 1e9:.1f} TFLOP/s of device busy time")
+              f"prefill's {n_ssm} Mamba-2 layers, {mflops / pre['busy_ms'] / 1e9:.1f} TFLOP/s of device "
+              f"busy time")
     dec_kernel_text = ("no kernel" if dec_kernel is None else
                        f"{dec_kernel[2]} {dec['kernel_ms'] * 1e3:.1f} us = "
                        f"{100 * dec['kernel_share']:.2f}% of the device time")
@@ -2695,12 +2900,29 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
           f"{n_params * 4 / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); {dec_kernel_text}")
     print(f"  runtime calls: prefill {pre['calls']}, decode step {dec['calls']}")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
-    metrics = dict(arch=arch, params=n_params, batch=b, prompt=prompt, tokens=n,
+    split = None
+    if n_moe:
+        split = {"prefill": moe_split(torch, params, cfg, batch["tokens"], n_moe, n=5),
+                 "decode": moe_split(torch, params, cfg, tok, n_moe, n=20)}
+        for name, sp, busy in (("prefill", split["prefill"], pre["busy_ms"]),
+                               ("decode step", split["decode"], dec["busy_ms"])):
+            total = sum(sp["step_ms"].values())
+            print(f"  MoE split, {name} ({sp['tokens']} tokens a layer, capacity {sp['capacity']}, x {n_moe} "
+                  f"layers, each step timed alone): "
+                  + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%; events {sp['step_events_ms'][k]:.3f})"
+                              for k, v in sp["step_ms"].items())
+                  + f"; together {total:.3f} ms = {100 * total / busy:.1f}% of the {name}'s device busy "
+                  f"{busy:.3f} ms; expert products {sp['expert_flops']:.4g} flops a layer as run "
+                  f"({sp['expert_tflops']:.1f} TFLOP/s), {sp['active_flops']:.4g} by moe_flops: capacity "
+                  f"padding {100 * sp['padding_share']:.1f}% of the expert flops")
+    metrics = dict(arch=arch, layers=cfg.num_layers, params=n_params, batch=b, prompt=prompt, tokens=n,
                    prefill_ms=res.prefill_s * 1e3, prefill_tok_s=prefill_tok_s,
                    decode_ms_per_step=res.decode_s * 1e3 / n, decode_tok_s=decode_tok_s,
                    max_memory_allocated=peak, b4_by_body=by_body, teacher_forcing_max_diff=diff,
                    teacher_forcing_rel=diff / scale, argmax_agreement=agree,
-                   prefill_profile=pre, decode_profile=dec)
+                   prefill_profile=pre, decode_profile=dec, gemm_flops=gemm_flops)
+    if n_moe:
+        metrics.update(moe_dropped=drops, moe_split=split, stacked=stacked, expert_params=expert_params)
     del params, res, prof
     torch.cuda.empty_cache()
     return launches, metrics
@@ -2709,9 +2931,8 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
 def reduced_serve(torch, family: str) -> None:
     """The reduced LM of ``SERVE_CELLS[family]`` served on the card equals
     the same on the CPU: the same tokens, logits and decode caches within
-    1e-4 (weights made on the CPU and copied)."""
-    import dataclasses
-
+    1e-4 (weights made on the CPU and copied; an MoE at its real
+    capacity)."""
     from repro_torch import convert
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
@@ -2720,17 +2941,19 @@ def reduced_serve(torch, family: str) -> None:
     cell = SERVE_CELLS[family]
     arch = cell["arch"]
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    cfg = launcher.model_config(arch, reduced=True, device=cuda)
-    if cell["reduced_head_dim"] is not None:
-        cfg = dataclasses.replace(cfg, head_dim=cell["reduced_head_dim"])
+    cfg = serve_config(cell, reduced=True)
+    n_attn, n_ssm, n_moe = layer_kinds(cfg)
     p_cpu = init_params(cfg, seed=0, device=cpu)
     p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
     prompt = launcher.make_prompt(cfg, 2, cell["reduced_prompt"], cpu)
-    before = dict(flash_attention.launches_by_body)
+    reset_launches()
     gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(cuda)}, 8,
                          keep_logits=True)
-    by_body = {k: v - before[k] for k, v in flash_attention.launches_by_body.items()}
-    check_prefill_body(f"reduced serve {arch}", cell, by_body, cfg.num_layers)
+    launches = {k: v for k, v in read_launches().items() if v}
+    by_body = dict(flash_attention.launches_by_body)
+    check_prefill_body(f"reduced serve {arch}", cell, by_body, n_attn)
+    if launches != expected_launches(cfg, 8):
+        fail(f"reduced serve {arch}: launches {launches}, expected {expected_launches(cfg, 8)}")
     ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
     pairs = [("prefill", gpu.prefill_logits, ref.prefill_logits)]
     pairs += [(f"step {i}", a, b) for i, (a, b) in enumerate(zip(gpu.step_logits, ref.step_logits))]
@@ -2741,10 +2964,12 @@ def reduced_serve(torch, family: str) -> None:
         fail(f"reduced serve {arch}: card != CPU (tokens equal: "
              f"{torch.equal(gpu.tokens.cpu(), ref.tokens)}, max |diff| {worst})")
     fields = sorted({f for layer in gpu.cache.layers for f in layer._fields})
-    print(f"  reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, head dim "
+    kinds = f"{n_attn} attention, {n_ssm} Mamba-2, {n_moe} MoE at capacity factor {cfg.moe.capacity_factor}, " \
+        if n_moe else ""
+    print(f"  reduced {arch} ({cfg.num_layers} layers, {kinds}d_model {cfg.d_model}, head dim "
           f"{cfg.resolved_head_dim}, prompt "
           f"{cell['reduced_prompt']}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
-          f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4)"
+          f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4); launches {launches}"
           + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
 
 
@@ -2857,6 +3082,7 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: FAIL: no repro_torch package under {SRC}", file=sys.stderr)
         return 2
+    from repro_torch.configs import ARCHS
     from repro_torch.configs.exsample_paper import bdd, dashcam
     from repro_torch.kernels import build
 
@@ -2966,8 +3192,12 @@ def main() -> int:
 
     serve_launches, serve_metrics = {}, {}
     for family, cell in SERVE_CELLS.items():
-        phase(f"serve path ({family}): {cell['arch']}, full width, float32, batch {cell['batch']}, "
-              f"prompt {cell['prompt']}, {cell['tokens']} greedy tokens:")
+        depth = ("full depth" if not cell.get("layers") else
+                 f"num_layers cut {ARCHS[cell['arch']].num_layers} -> {cell['layers']} (the whole model does "
+                 f"not fit one card)")
+        phase(f"serve path ({family}): {cell['arch']}, full width, {depth}, float32, batch {cell['batch']}, "
+              f"prompt {cell['prompt']}, {cell['tokens']} greedy tokens; reduced check at "
+              f"{cell.get('reduced_layers') or 2} layers:")
         serve_launches[family], serve_metrics[family] = serve_path(torch, family)
         reduced_serve(torch, family)
     phase(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
@@ -3009,6 +3239,13 @@ def main() -> int:
         ("ssd_scan", ("ssd_scan", *B6_SHAPES[0]),
          "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
          serve_launches["ssm"]["ssd_scan"]),
+        ("flash_attention_d64", ("flash_attention", *B4_MOE), b4_src, b4_tpu,
+         serve_launches["moe"]["flash_attention"]),
+        ("flash_decode_d64", ("flash_decode", *B5_MOE[:6]), b5_src, b5_tpu,
+         serve_launches["moe"]["flash_decode"]),
+        ("ssd_scan_hybrid", ("ssd_scan", *B6_HYBRID),
+         "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
+         serve_launches["hybrid"]["ssd_scan"]),
     ):
         row = rows[key]
         summary.append(dict(
@@ -3029,7 +3266,8 @@ def main() -> int:
                       "async_multi": async_multi_metrics, "async": async_metrics, "service": service_metrics,
                       "mesh": mesh_metrics}))
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
-                      "serve_ssm": serve_metrics["ssm"], "prefill_bf16": bf16_metrics}))
+                      "serve_ssm": serve_metrics["ssm"], "serve_moe": serve_metrics["moe"],
+                      "serve_hybrid": serve_metrics["hybrid"], "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
                                    "cosine_scan": cosine_launches["scan"],
                                    "cosine_multi": cosine_launches["multi"],
@@ -3044,7 +3282,8 @@ def main() -> int:
                                    "plan_compose": mesh_launches["plan_compose"],
                                    "elastic": mesh_launches["elastic"],
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
-                                   "serve_ssm": serve_launches["ssm"], "prefill_bf16": bf16_launches}}))
+                                   "serve_ssm": serve_launches["ssm"], "serve_moe": serve_launches["moe"],
+                                   "serve_hybrid": serve_launches["hybrid"], "prefill_bf16": bf16_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

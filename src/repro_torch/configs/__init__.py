@@ -3,7 +3,8 @@ stack (``ARCHS``, ``get_config``) and the paper's own
 evaluation setups (``exsample_paper``).
 
 Counterpart of ``repro.configs``, data only.  The port's model runs the
-``dense`` family; the others raise ``NotImplementedError`` there.
+dense, ssm, moe and hybrid families; vlm and audio raise
+``NotImplementedError`` there.
 """
 from __future__ import annotations
 

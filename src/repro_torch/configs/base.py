@@ -87,10 +87,16 @@ class RunConfig:
     The reference's ``RunConfig`` also carries tiling, remat, sharding,
     optimizer and MoE knobs; the port keeps only the fields its serving
     path reads and adds the others with the slice that first reads them.
+    ``stacked`` picks the prefill's stacked forward (``models.stacked``),
+    as in the reference.  ``moe_token_exchange`` is not here: the
+    reference reads it only for sharding hints, which the port has no
+    use for.  Nor are ``remat`` and ``sequence_parallel``, which only
+    training reads.
     """
 
     param_dtype: str = "bfloat16"
     probs_bf16: bool = False           # bf16 attention probabilities: not on the port's path
+    stacked: bool = False              # layers stacked by pattern period (models.stacked)
 
     def dtype(self):
         import torch

@@ -9,7 +9,8 @@ uint32[Q, 2]) converts the same way, and so does the multi-query driver's
 ``DetectionCache`` (``{"tag", "store"}``; the port's cache keeps one
 scratch row past its capacity, added here and stripped by ``to_numpy``).
 The LM's parameters travel as the reference's own nested dict of numpy
-arrays (``params_from_numpy``, ``params_to_numpy``), key for key, and a
+arrays (``params_from_numpy``, ``params_to_numpy``), key for key, the
+unrolled tree or the stacked one (``models.stacked.stack_schema``), and a
 Mamba-2 layer's decode cache as ``{"conv", "ssm"}``.
 Nothing here imports the reference package.
 """
@@ -26,8 +27,9 @@ from repro_torch.core.matcher import MatcherState
 from repro_torch.core.state import SamplerState
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models.layers import ParamNode
+from repro_torch.models.layers import ParamNode, empty_params
 from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.stacked import stack_schema
 from repro_torch.models.transformer import empty_model
 from repro_torch.serve.batcher import DetectionCache
 from repro_torch.sim.oracle import Detections
@@ -141,16 +143,19 @@ def _param_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> ParamNode:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None, *, stacked: bool = False) -> ParamNode:
     """The reference's parameter tree (a nested dict of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's ``ParamNode`` for
-    ``cfg`` on ``device`` (default: the card).  The paths and shapes must
+    ``cfg`` on ``device`` (default: the card); with ``stacked`` the
+    reference's stacked tree (``stack_schema``).  The paths and shapes must
     match exactly; the dtype (float32 or bfloat16) is the arrays' own."""
     flat = _flatten(tree)
     dtypes = {_param_tensor(a).dtype for a in flat.values()}
     if len(dtypes) != 1:
         raise ValueError(f"parameters of mixed dtypes {dtypes}")
-    params = empty_model(cfg, dtypes.pop(), device)
+    dtype = dtypes.pop()
+    params = (empty_params(stack_schema(cfg)[0], dtype, resolve(device)) if stacked
+              else empty_model(cfg, dtype, device))
     named = dict(params.named_parameters())
     if set(flat) != set(named):
         raise KeyError(f"parameter paths differ: missing {sorted(set(named) - set(flat))}, "

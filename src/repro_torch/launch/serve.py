@@ -1,15 +1,19 @@
-"""Serving launcher: prefill + greedy decode for a dense or ssm ``--arch``, on the card.
+"""Serving launcher: prefill + greedy decode for a dense, ssm, moe or hybrid ``--arch``, on the card.
 
 Counterpart of ``repro.launch.serve``, with the same flags, flow and
 prints.  Weights are random (seed 0), made on the device; the prompt is
 random tokens (seed 1).  As in the reference, decode starts from an empty
 cache at position 0 with the prefill's argmax token: the prompt's own K/V
-(dense) or conv window and state (ssm) never reach the decode cache
-(ROADMAP C5).  An ssm prompt must be a multiple of min(chunk_len, length).
+(attention layers) or conv window and state (Mamba-2 layers) never reach
+the decode cache (ROADMAP C5).  An ssm or hybrid prompt must be a
+multiple of min(chunk_len, length).  The MoE layers route each step's
+tokens as one group (``moe_groups`` 1, the reference launcher's).
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 4 --prompt-len 2048 --tokens 64
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --batch 4 --prompt-len 2048 --tokens 64
   python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt-len 8192 --tokens 64
   python -m repro_torch.launch.serve --device cpu --arch mamba2-370m --prompt-len 64 --tokens 8
+  python -m repro_torch.launch.serve --device cpu --arch jamba-1.5-large-398b --tokens 8
 
 ``--device`` defaults to ``cuda`` and fails without a card.  With
 ``--reduced``, or on the CPU, the config is ``scale_down``'s reduced one.
@@ -58,10 +62,12 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
-          keep_logits: bool = False) -> ServeResult:
+          keep_logits: bool = False, moe_stats: list | None = None) -> ServeResult:
     """Prefill the prompt, then decode ``tokens`` greedy tokens per
     sequence from a zeroed cache (KV layers of length prompt + tokens + 1;
-    Mamba-2 layers a zero conv window and state)."""
+    Mamba-2 layers a zero conv window and state).  With a ``moe_stats``
+    list, each step (the prefill, then every decode step) appends the list
+    of its MoE layers' ``MoEStats``."""
     prefill = build_prefill_step(cfg, run)
     decode = build_decode_step(cfg, run)
     device = batch["tokens"].device
@@ -69,7 +75,7 @@ def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits = prefill(params, batch)
+    logits = prefill(params, batch, moe_stats=_step_stats(moe_stats))
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -79,7 +85,7 @@ def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(tokens):
-        tok, lg, cache = decode(params, tok, cache)
+        tok, lg, cache = decode(params, tok, cache, moe_stats=_step_stats(moe_stats))
         out.append(tok)
         if keep_logits:
             step_logits.append(lg)
@@ -89,12 +95,22 @@ def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
                        cache=cache, prefill_s=prefill_s, decode_s=decode_s)
 
 
+def _step_stats(moe_stats: list | None) -> list | None:
+    """A new list for one step's MoE stats, appended to ``moe_stats``."""
+    if moe_stats is None:
+        return None
+    moe_stats.append([])
+    return moe_stats[-1]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="Prefill + greedy decode of a dense or ssm (mamba2) LM with random weights; "
-                    "the moe, hybrid, vlm and audio families are not ported yet.")
+        description="Prefill + greedy decode of a dense, ssm (mamba2), moe (dbrx, granite-moe) or "
+                    "hybrid (jamba) LM with random weights; the vlm and audio families are not "
+                    "ported yet.")
     ap.add_argument("--arch", default="gemma-7b", choices=sorted(ARCHS),
-                    help="model; dense (phi3, qwen2.5, granite-20b, gemma) or ssm (mamba2-370m)")
+                    help="model; dense (phi3, qwen2.5, granite-20b, gemma), ssm (mamba2-370m), "
+                         "moe (dbrx-132b, granite-moe-1b-a400m) or hybrid (jamba-1.5-large-398b)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)

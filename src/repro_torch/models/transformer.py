@@ -1,17 +1,22 @@
 """The decoder-only LM of the serving path: prefill and decode.
 
-Counterpart of the dense and ssm subsets of ``repro.models.transformer``
-(phi3, qwen2.5 with its QKV bias, granite-20b's MQA, gemma's GeGLU and
-wide heads; mamba2's attention-free stack).  Parameters are a
+Counterpart of the dense, ssm, moe and hybrid subsets of
+``repro.models.transformer`` (phi3, qwen2.5 with its QKV bias,
+granite-20b's MQA, gemma's GeGLU and wide heads; mamba2's attention-free
+stack; dbrx's and granite-moe's experts; jamba's Mamba-2/attention
+interleave with experts on every second layer).  Parameters are a
 ``ParamNode`` tree whose names are the reference's paths
-(``layer_{i}.attn.wq``, ``layer_{i}.mamba.wx``, ...) in the reference's
-orientation (``x @ w``), so ``repro_torch.convert`` copies a reference
-parameter tree key for key.  A layer is attention or Mamba-2 as
-``cfg.is_attn_layer`` says, with a dense MLP after it when ``d_ff > 0``.
-Prefill attention runs through kernel B4 and the Mamba-2 SSD through
-kernel B6, one launch per layer each; decode attention through kernel B5,
-one launch per layer and token.  The other families (moe, hybrid, vlm,
-audio) raise ``NotImplementedError``.
+(``layer_{i}.attn.wq``, ``layer_{i}.mamba.wx``, ``layer_{i}.moe.w_up``,
+...) in the reference's orientation (``x @ w``), so
+``repro_torch.convert`` copies a reference parameter tree key for key.
+A layer is attention or Mamba-2 as ``cfg.is_attn_layer`` says, followed
+by the MoE block where ``cfg.is_moe_layer`` says so and else by a dense
+MLP when ``d_ff > 0``.  Prefill attention runs through kernel B4 and the
+Mamba-2 SSD through kernel B6, one launch per layer each; decode
+attention through kernel B5, one launch per layer and token.  The MoE
+block (``models.moe``) routes the layer's B·S tokens in ``moe_groups``
+groups and runs no kernel of its own.  The vlm and audio families raise
+``NotImplementedError``.
 
 Decode keeps the position as a host ``int`` and writes the new K/V rows
 into the cache in place (the reference's ``dynamic_update_slice`` returns
@@ -43,8 +48,9 @@ from repro_torch.models.layers import (
     mlp_schema,
     norm_schema,
 )
+from repro_torch.models.moe import apply_moe, moe_schema
 
-SUPPORTED_FAMILIES = ("dense", "ssm")
+SUPPORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -81,7 +87,10 @@ def _decoder_layer_schema(cfg: ModelConfig, layer: int) -> Schema:
         s["attn"] = _attn_schema(cfg)
     else:
         s["mamba"] = mamba2.mamba_schema(cfg.d_model, cfg.ssm)
-    if cfg.d_ff > 0:
+    if cfg.is_moe_layer(layer):
+        s["norm2"] = norm_schema(cfg.norm, cfg.d_model)
+        s["moe"] = moe_schema(cfg.d_model, cfg.moe, cfg.mlp)
+    elif cfg.d_ff > 0:
         s["norm2"] = norm_schema(cfg.norm, cfg.d_model)
         s["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff, cfg.mlp)
     return s
@@ -136,22 +145,37 @@ def _self_attention(p, x_norm: torch.Tensor, cfg: ModelConfig, run: RunConfig, *
     return o.reshape(b, s, -1) @ p["wo"]
 
 
-def _ffn(pl, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Post-mixer dense MLP sublayer, with residual; none when d_ff = 0."""
-    if "mlp" not in pl:
-        return x
-    h = apply_norm(cfg.norm, pl["norm2"], x)
-    return x + apply_mlp(pl["mlp"], h, cfg.mlp)
+def _ffn(pl, x: torch.Tensor, cfg: ModelConfig, layer: int, moe_groups: int,
+         moe_stats: list | None) -> torch.Tensor:
+    """Post-mixer feed-forward sublayer (dense MLP or MoE), with residual;
+    none when d_ff = 0.  The MoE routes the B·S tokens as ``g = max(min(
+    moe_groups, B·S), 1)`` groups of B·S/g and appends its ``MoEStats`` to
+    ``moe_stats`` when given (which changes no output)."""
+    if cfg.is_moe_layer(layer):
+        h = apply_norm(cfg.norm, pl["norm2"], x)
+        b, s, d = h.shape
+        g = max(min(moe_groups, b * s), 1)
+        if (b * s) % g:
+            raise ValueError(f"moe_groups {g} does not divide the {b * s} tokens of the batch")
+        y, stats = apply_moe(pl["moe"], h.reshape(g, (b * s) // g, d), cfg.moe, mlp_kind=cfg.mlp)
+        if moe_stats is not None:
+            moe_stats.append(stats)
+        return x + y.reshape(b, s, d)
+    if "mlp" in pl:
+        h = apply_norm(cfg.norm, pl["norm2"], x)
+        return x + apply_mlp(pl["mlp"], h, cfg.mlp)
+    return x
 
 
 def _decoder_layer(pl, x: torch.Tensor, cfg: ModelConfig, run: RunConfig, layer: int, *,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, moe_groups: int,
+                   moe_stats: list | None) -> torch.Tensor:
     h = apply_norm(cfg.norm, pl["norm1"], x)
     if cfg.is_attn_layer(layer):
         x = x + _self_attention(pl["attn"], h, cfg, run, causal=True, positions=positions)
     else:
         x = x + mamba2.apply_mamba(pl["mamba"], h, cfg.ssm)
-    return _ffn(pl, x, cfg)
+    return _ffn(pl, x, cfg, layer, moe_groups, moe_stats)
 
 
 # --------------------------------------------------------------------------
@@ -164,17 +188,20 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 @torch.no_grad()
 def forward_lm(params, batch: dict, cfg: ModelConfig, run: RunConfig, *,
-               mode: str = "train", last_only: bool = False) -> torch.Tensor:
+               mode: str = "train", moe_groups: int = 1, last_only: bool = False,
+               moe_stats: list | None = None) -> torch.Tensor:
     """Causal LM forward → logits [B, S, V] ([B, 1, V] with ``last_only``).
     ``batch["tokens"]`` int[B, S]; modes ``train`` and ``prefill`` run the
-    same forward (no remat or sequence sharding in the port)."""
+    same forward (no remat or sequence sharding in the port).  Each MoE
+    layer appends its ``MoEStats`` to ``moe_stats`` when given."""
     require_ported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     x = embed_tokens(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.num_layers):
-        x = _decoder_layer(params[f"layer_{i}"], x, cfg, run, i, positions=positions)
+        x = _decoder_layer(params[f"layer_{i}"], x, cfg, run, i, positions=positions,
+                           moe_groups=moe_groups, moe_stats=moe_stats)
     x = apply_norm(cfg.norm, params["norm_f"], x)
     if last_only:
         x = x[:, -1:]              # only the next-token position matters
@@ -210,10 +237,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 @torch.no_grad()
 def forward_decode(params, token: torch.Tensor, cache: DecodeCache, cfg: ModelConfig,
-                   run: RunConfig) -> tuple[torch.Tensor, DecodeCache]:
+                   run: RunConfig, *, moe_groups: int = 1,
+                   moe_stats: list | None = None) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step: token int[B, 1] → (logits [B, V], the cache
     one position longer).  The new K/V rows are written in place; a Mamba-2
-    layer's cache is replaced."""
+    layer's cache is replaced.  An MoE layer routes the step's B tokens
+    (capacity from B, not from the cache) and appends its ``MoEStats`` to
+    ``moe_stats`` when given."""
     require_ported(cfg)
     b = token.shape[0]
     pos = cache.pos
@@ -241,7 +271,7 @@ def forward_decode(params, token: torch.Tensor, cache: DecodeCache, cfg: ModelCo
             y, mc = mamba2.apply_mamba_decode(pl["mamba"], h, cache.layers[i], cfg.ssm)
             x = x + y
             layers.append(mc)
-        x = _ffn(pl, x, cfg)
+        x = _ffn(pl, x, cfg, i, moe_groups, moe_stats)
     x = apply_norm(cfg.norm, params["norm_f"], x)
     logits = apply_unembed(params["embed"], x)[:, 0]
     return logits, DecodeCache(layers=tuple(layers), pos=pos + 1)

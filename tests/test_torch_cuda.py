@@ -1106,3 +1106,75 @@ def test_the_mesh_kinds_on_the_card_equal_the_cpu(card, multi, sync_every):
                           "match_update_batched": MESH_SHARDS * slots * rounds}
     else:
         assert counts == {"thompson_round": MESH_SHARDS * rounds, "match_update": got.plan.cohorts * rounds}
+
+
+# ---- the MoE and hybrid families and the stacked forward -----------------------
+
+def test_apply_moe_on_the_card_equals_the_cpu(card):
+    """The MoE block at reduced width with drops (capacity factor 0.25, 2
+    groups): routing exact, output within 1e-5 + 1e-5·|ref|, the dropped
+    fraction equal."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    from repro_torch.models.layers import materialize
+
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff=48, capacity_factor=0.25)
+    p = materialize(moe.moe_schema(32, cfg, "swiglu"), 3, torch.float32, "cpu")
+    pg = {n: t.to(card) for n, t in p.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 24, 32)).astype(np.float32))
+    c = moe.capacity(24, cfg)
+    r = moe.route(moe.router_logits(p, x, cfg), cfg, c)
+    rg = moe.route(moe.router_logits(pg, x.to(card), cfg), cfg, c)
+    for f in ("top_e", "flat_pos", "keep", "src"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(r, f)), f
+    out, st = moe.apply_moe(p, x, cfg, mlp_kind="swiglu")
+    gout, gst = moe.apply_moe(pg, x.to(card), cfg, mlp_kind="swiglu")
+    torch.testing.assert_close(gout.cpu(), out, rtol=1e-5, atol=1e-5)
+    assert float(gst.dropped_fraction) == float(st.dropped_fraction) > 0.0
+
+
+@pytest.mark.parametrize("arch,layers", [("granite-moe-1b-a400m", 2), ("jamba-1.5-large-398b", 8)])
+def test_reduced_moe_and_hybrid_on_the_card_equal_the_cpu(card, arch, layers):
+    """The reduced granite-moe and jamba (8 layers: one attention layer)
+    served on the card at the real capacity equal the same on the CPU:
+    tokens, logits and every layer's cache within 1e-4; B4 and B5 once a
+    layer (a token) on the attention layers, B6 once a Mamba-2 layer."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cfg = scale_down(ARCHS[arch], layers=layers)
+    attn = sum(cfg.is_attn_layer(i) for i in range(layers))
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=card)
+    prompt = launcher.make_prompt(cfg, 2, 32, "cpu")
+    before = (flash_attention.launches, flash_decode.launches, ssd_scan.launches)
+    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(card)}, 8, keep_logits=True)
+    ran = (flash_attention.launches - before[0], flash_decode.launches - before[1], ssd_scan.launches - before[2])
+    assert ran == (attn, attn * 8, layers - attn)
+    ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
+    assert torch.equal(gpu.tokens.cpu(), ref.tokens)
+    pairs = [(gpu.prefill_logits, ref.prefill_logits)] + list(zip(gpu.step_logits, ref.step_logits))
+    for a, b in zip(gpu.cache.layers, ref.cache.layers):
+        pairs += list(zip(a, b))
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,layers", [("granite-moe-1b-a400m", 2), ("jamba-1.5-large-398b", 16)])
+def test_stacked_prefill_on_the_card_equals_the_unrolled_one(card, arch, layers):
+    """The stacked prefill on the card, on the unrolled weights restacked
+    there, equals the unrolled prefill bit for bit."""
+    from repro_torch.configs import ARCHS, RunConfig, scale_down
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.stacked import stack_params
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.serve_step import build_prefill_step
+
+    cfg = scale_down(ARCHS[arch], layers=layers)
+    params = init_params(cfg, seed=0, device=card)
+    batch = launcher.make_prompt(cfg, 2, 64, card)
+    want = build_prefill_step(cfg, launcher.RUN)(params, batch)
+    got = build_prefill_step(cfg, RunConfig(param_dtype="float32", stacked=True))(stack_params(params, cfg), batch)
+    assert torch.equal(got, want)
