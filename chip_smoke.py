@@ -31,8 +31,14 @@ B6, the SSD chunk scan), granite-moe-1b-a400m at full width and depth (its
 experts in plain PyTorch between B4 and B5; its prefill also through the
 stacked forward against the unrolled one) and jamba-1.5-large-398b at full
 width cut to 2 layers (B6 in both Mamba-2 layers, the MoE on the second),
-hold each one's decode to teacher forcing (an MoE model on its drop-free
-copy), and each reduced LM on the card to the same on the CPU; last, prefill
+phi-3-vision-4.2b at full width and depth (576 patches before each prompt's
+tokens; its prefill also stacked) and whisper-base (an encoder over 1,500
+frames with B4 full, B5 over the cross caches read whole), hold each one's
+decode to teacher forcing (an MoE model on its drop-free copy, the vlm
+without patches, whisper over zero frames), and each reduced LM on the card
+to the same on the CPU; then the detector step on phi-3-vision at full
+width over one cohort of 50 bdd(1.0) frames (each call's rows independent,
+the reduced step card against CPU); last, prefill
 phi3-medium-14b in bfloat16 at full depth, whose attention runs on B4's
 bf16 tensor-core ("wgmma") body.  The float32 prefills' attention, gemma's
 heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
@@ -215,7 +221,26 @@ SERVE_CELLS = {
     "hybrid": dict(arch="jamba-1.5-large-398b", layers=2, batch=1, prompt=2048, tokens=8, reduced_layers=8,
                    reduced_prompt=64, reduced_head_dim=None, prefill=("ssd_scan", "ssd_scan", "B6"),
                    prefill_body=None, decode=None),
+    # phi-3-vision-4.2b at full width and depth (14.90 GB of float32 weights): each prompt of 2,048
+    # rows is 576 patches (a seeded normal) then 1,472 tokens; its prefill also stacked
+    "vlm": dict(arch="phi-3-vision-4.2b", batch=4, prompt=2048, tokens=64, reduced_prompt=32,
+                reduced_head_dim=None, prefill=("flash_attention", "flash_attention", "B4"),
+                prefill_body="wgmma_f32", decode=("flash_decode", "flash_decode_kernel", "B5"),
+                stacked=True),
+    # whisper-base at full width and depth: 16 prompts of 384 tokens over 1,500 frames (30 s at
+    # 50 Hz, a seeded normal), then 64 greedy tokens (384 + 64 = 448, whisper's text context); B4
+    # full in the encoder and the cross-attention, causal in the decoder; B5 over the self and the
+    # cross caches
+    "audio": dict(arch="whisper-base", batch=16, prompt=384, frames=1500, tokens=64, reduced_prompt=32,
+                  reduced_head_dim=None, prefill=("flash_attention", "flash_attention", "B4"),
+                  prefill_body="wgmma_f32", decode=("flash_decode", "flash_decode_kernel", "B5")),
 }
+# the detector step (``serve_step.build_detect_step``) on phi-3-vision at full width and depth: one
+# cohort of 50 bdd(1.0) frames through RequestBatcher(batch_size=50), each 576 patch embeddings of
+# 1,024 (``sim.frame_embedding``) and 16 tokens, so S = 592; the head at the repo's widths:
+# ``max_dets`` 16 (the oracle's), ``num_classes`` 8 (PaperSetup), ``feat_dim`` 8 (RepoSpec)
+DETECT = dict(arch="phi-3-vision-4.2b", frames=50, tokens=16, alone=4, max_dets=16, num_classes=8, feat_dim=8,
+              seed=29)
 # B4/B5 against their plain versions, element by element: float32 within
 # 1e-4; bfloat16 within 1e-4 + 8e-3·|ref| (one bf16 ulp is at most
 # 2^-7·|ref|: both sides compute in float32 and round once) and never
@@ -230,6 +255,11 @@ B4_SERVE = (4, 2048, 2048, 40, 10, 128, "float32", True)
 B4_GEMMA = (4, 2048, 2048, 16, 16, 256, "float32", True)
 B4_BF16 = (1, 8192, 8192, 40, 10, 128, "bfloat16", True)
 B4_MOE = (4, 2048, 2048, 16, 8, 64, "float32", True)     # granite-moe-1b-a400m's prefill
+B4_VLM = (4, 2048, 2048, 32, 32, 96, "float32", True)    # phi-3-vision-4.2b's prefill
+B4_DETECT = (50, 592, 592, 32, 32, 96, "float32", True)   # its detector step: 50 frames of 576 + 16 rows
+B4_AUDIO = (16, 1500, 1500, 8, 8, 64, "float32", False)  # whisper-base's encoder: full, ragged T
+B4_AUDIO_SELF = (16, 384, 384, 8, 8, 64, "float32", True)  # its decoder's self-attention: G = 1, d = 64
+B4_CROSS = (16, 384, 1500, 8, 8, 64, "float32", False)   # its cross-attention
 B4_SHAPES = (
     B4_SERVE,
     (1, 2048, 2048, 40, 10, 128, "float32", True),
@@ -249,6 +279,11 @@ B4_SHAPES = (
     (1, 2048, 2048, 32, 32, 96, "bfloat16", True),       # phi3-vision's heads
     (1, 2048, 2048, 16, 8, 64, "float32", True),         # granite-moe's heads
     (1, 2048, 2048, 32, 32, 96, "float32", True),        # phi3-vision's heads
+    B4_VLM,
+    B4_DETECT,
+    B4_AUDIO,
+    B4_AUDIO_SELF,
+    B4_CROSS,
 )
 # the dense prefill in bfloat16 (the reference's default param_dtype): one
 # prompt of 8,192 tokens, so each layer's attention is B4_BF16; all 40
@@ -259,10 +294,16 @@ BF16_PREFILL = dict(arch="phi3-medium-14b", batch=1, prompt=8192, reduced_prompt
 B5_SERVE = (4, 40, 10, 128, 2113, "float32", (64,) * 4)
 B5_GEMMA = (4, 16, 16, 256, 2113, "float32", (64,) * 4)
 B5_MOE = (4, 16, 8, 64, 2113, "float32", (64,) * 4)        # granite-moe-1b-a400m's decode
+B5_VLM = (4, 32, 32, 96, 2113, "float32", (64,) * 4)       # phi-3-vision-4.2b's decode: G = 1, d = 96
+B5_AUDIO_SELF = (16, 8, 8, 64, 449, "float32", (64,) * 16)  # whisper-base's self decode: 384 + 64 + 1
+B5_CROSS = (16, 8, 8, 64, 1500, "float32", (1500,) * 16)   # its cross decode, read whole
 B5_SHAPES = (
     B5_SERVE,
     B5_GEMMA,
     B5_MOE,
+    B5_VLM,
+    B5_AUDIO_SELF,
+    B5_CROSS,
     (4, 40, 10, 128, 2113, "float32", (2113,) * 4),            # phi3's serve shape, full cache
     (8, 40, 10, 128, 32768, "float32", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
     (8, 40, 10, 128, 32768, "bfloat16", (0, 1, 32768, 16384, 777, 32767, 4096, 12345)),
@@ -1147,7 +1188,8 @@ def check_attention_kernels(torch, rows) -> None:
         rep_ms = device_ms(repeated, n=20) or median_ms(repeated, inner=10, reps=5)
         row.update(library_gqa_ms=row["library_ms"], sdpa_repeat_backend=rep_backend,
                    library_repeat_ms=rep_ms, library_ms=min(row["library_ms"], rep_ms))
-        rows[("flash_decode", b, h, kv, d, t, dtype)] = row
+        # keyed by the lengths too: the serve row and its full-cache twin share every other field
+        rows[("flash_decode", b, h, kv, d, t, dtype, tuple(lens))] = row
         print(f"  flash_decode (B,H,KV,d,T)=({b},{h},{kv},{d},{t}) {dtype} cache_len {list(lens)}: "
               f"max |diff| {err:.3g} (mean |ref| {mag:.3g}, largest |diff| / limit {worst:.3g}); "
               + describe(row)
@@ -1173,6 +1215,8 @@ def reset_launches() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_body"):
             fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape = {}
 
 
 def read_launches() -> dict:
@@ -2592,12 +2636,12 @@ def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
             "gemm_ms": gemm / 1e3, "calls": calls}
 
 
-def check_prefill_body(label: str, cell: dict, by_body: dict, layers: int) -> None:
-    """Each prefill layer launched B4 once on the cell's ``prefill_body``
+def check_prefill_body(label: str, cell: dict, by_body: dict, launches: int) -> None:
+    """The prefill's ``launches`` of B4 all ran the cell's ``prefill_body``
     and no other body ran (nothing to check where the cell names none)."""
     if cell["prefill_body"] is None:
         return
-    want = {body: layers if body == cell["prefill_body"] else 0 for body in by_body}
+    want = {body: launches if body == cell["prefill_body"] else 0 for body in by_body}
     if by_body != want:
         fail(f"{label}: B4 launches by body {by_body}, expected {want}")
 
@@ -2627,11 +2671,94 @@ def layer_kinds(cfg) -> tuple[int, int, int]:
 
 
 def expected_launches(cfg, tokens: int) -> dict:
-    """A serve's launches: B4 once an attention layer and B6 once a Mamba-2
-    layer in the prefill, B5 once an attention layer and decoded token."""
+    """A serve's launches: B4 once an attention layer, an encoder layer and
+    a cross-attention layer and B6 once a Mamba-2 layer in the prefill, B5
+    once an attention layer and a cross-attention layer a decoded token."""
     attn, ssm, _ = layer_kinds(cfg)
-    want = {"flash_attention": attn, "flash_decode": attn * tokens, "ssd_scan": ssm}
+    cross = cfg.num_layers if cfg.cross_attention else 0
+    want = {"flash_attention": attn + cfg.encoder_layers + cross, "flash_decode": (attn + cross) * tokens,
+            "ssd_scan": ssm}
     return {k: v for k, v in want.items() if v}
+
+
+def expected_shapes(cfg, b: int, prompt: int, frames: int, tokens: int) -> tuple[dict, dict]:
+    """A float32 serve's launches by shape: B4's (B, S, T, H, KV, d, dtype,
+    causal) in the prefill (the decoder's self-attention over the prompt's
+    rows, the encoder over the frames, the cross-attention from the prompt
+    to the frames) and B5's (B, H, KV, d, T, dtype) over all decoded tokens
+    (the self caches of prompt + tokens + 1, the cross caches of
+    ``encoder_len``)."""
+    attn, _, _ = layer_kinds(cfg)
+    cross = cfg.num_layers if cfg.cross_attention else 0
+    if not (attn or cfg.encoder_layers or cross):      # no attention: no heads to read
+        return {}, {}
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b4 = {(b, prompt, prompt, h, kv, d, "float32", True): attn,
+          (b, frames, frames, h, kv, d, "float32", False): cfg.encoder_layers,
+          (b, prompt, frames, h, kv, d, "float32", False): cross}
+    b5 = {(b, h, kv, d, prompt + tokens + 1, "float32"): attn * tokens,
+          (b, h, kv, d, cfg.encoder_len, "float32"): cross * tokens}
+    return {k: v for k, v in b4.items() if v}, {k: v for k, v in b5.items() if v}
+
+
+def shape_launches(metrics: dict, kernel: str, shape: tuple) -> int:
+    """The launches of ``kernel`` at a kernel-phase row's ``shape`` in a
+    serve's run (``metrics["launches_by_shape"]``; B5's key leaves out the
+    cache lengths)."""
+    key = list(shape[:8] if kernel == "flash_attention" else shape[:6])
+    return sum(e["launches"] for e in metrics["launches_by_shape"][kernel] if e["shape"] == key)
+
+
+def serve_batch(torch, cfg, b: int, prompt: int, device, frames: int | None = None, seed: int = 1) -> dict:
+    """The launcher's batch (``make_prompt``) with a vlm's patches and an
+    audio model's frames ([b, ``frames`` or ``prompt``, d_model]) drawn from
+    a normal seeded by ``seed``."""
+    from repro_torch.launch import serve as launcher
+
+    batch = launcher.make_prompt(cfg, b, prompt, device, seed=seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    if "patches" in batch:
+        batch["patches"] = torch.randn(tuple(batch["patches"].shape), generator=g).to(device)
+    if "frames" in batch:
+        batch["frames"] = torch.randn((b, frames or prompt, cfg.d_model), generator=g).to(device)
+    return batch
+
+
+def forced_batch(torch, cfg, fed, frames: int) -> dict:
+    """The forward's batch that a decode over the ``fed`` tokens equals:
+    a vlm's with no patch (the decode never sees them), an audio model's
+    over zero frames (what the zeroed cross caches hold, ROADMAP C14)."""
+    batch = {"tokens": fed}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((fed.shape[0], 0, cfg.patch_dim), device=fed.device)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.zeros((fed.shape[0], frames, cfg.d_model), device=fed.device)
+    return batch
+
+
+def serve_gemm_flops(params, cfg, b: int, rows: int, frames: int) -> float:
+    """The products of a prefill of ``b`` sequences of ``rows`` decoder
+    rows: each weight matrix times the rows it multiplies (the decoder's
+    ``rows``, the encoder's and the cross K/V's ``frames``, the patch
+    projector's ``num_patches``), the last position's unembedding, the
+    experts at top_k a token as ``moe_flops`` counts them."""
+    from repro_torch.models.moe import moe_flops
+
+    total = 2.0 * b * cfg.d_model * cfg.vocab
+    for name, p in params.named_parameters():
+        if p.dim() < 2 or name.startswith("embed.") or ".moe.w_" in name:
+            continue
+        if name.startswith("enc_") or ".cross.wk" in name or ".cross.wv" in name:
+            n = frames
+        elif name.startswith("patch_proj."):
+            n = cfg.num_patches
+        else:
+            n = rows
+        total += 2.0 * b * n * p.numel()
+    moe_layers = layer_kinds(cfg)[2]
+    if moe_layers:
+        total += moe_layers * moe_flops(b * rows, cfg.d_model, cfg.moe, cfg.mlp)
+    return total
 
 
 def drop_free(cfg):
@@ -2704,11 +2831,13 @@ def moe_split(torch, params, cfg, tokens, layers: int, n: int) -> dict:
 
 def serve_path(torch, family: str) -> tuple[dict, dict]:
     """The full-width LM serving path of ``SERVE_CELLS[family]`` through the
-    launcher's functions: prefill (B4 once an attention layer, B6 once a
-    Mamba-2 layer), greedy decode (B5 once an attention layer and token), a
-    teacher-forcing check of every decode step against the full forward over
-    the fed tokens (for an MoE model, both on its drop-free copy: the real
-    capacity of a decode step's few tokens drops some), the MoE layers'
+    launcher's functions: prefill (B4 once an attention, encoder and
+    cross-attention layer, B6 once a Mamba-2 layer), greedy decode (B5 once
+    an attention and a cross-attention layer a token), a teacher-forcing
+    check of every decode step against the full forward over the fed tokens
+    (for an MoE model, both on its drop-free copy: the real capacity of a
+    decode step's few tokens drops some; a vlm's forward with no patch, an
+    audio model's over zero frames: ``forced_batch``), the MoE layers'
     dropped fractions, a profile of one prefill and one decode step with
     the MoE's steps timed apart, and, where the cell asks, the stacked
     prefill on the same weights against the unrolled one.  Frees the
@@ -2717,14 +2846,16 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
 
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.launch import serve as launcher
     from repro_torch.models import mamba2
-    from repro_torch.models.moe import capacity, moe_flops
+    from repro_torch.models.moe import capacity
     from repro_torch.models.stacked import stack_params
     from repro_torch.models.transformer import forward_lm, init_decode_cache, init_params
 
     cell = SERVE_CELLS[family]
     arch, b, prompt, n = cell["arch"], cell["batch"], cell["prompt"], cell["tokens"]
+    frames = cell.get("frames") or prompt
     pre_fn, pre_kernel, pre_label = cell["prefill"]
     cuda = torch.device("cuda")
     run = launcher.RUN
@@ -2748,19 +2879,25 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     if n_moe:
         widths.append(f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of width {cfg.moe.d_ff} on "
                       f"{n_moe} layers, capacity factor {cfg.moe.capacity_factor}")
+    if cfg.family == "vlm":
+        widths.append(f"{cfg.num_patches} patches of {cfg.patch_dim} before {prompt - cfg.num_patches} tokens")
+    if cfg.encoder_layers:
+        widths.append(f"an encoder of {cfg.encoder_layers} layers over {frames} frames, cross-attention in "
+                      f"every decoder layer (cross caches of {cfg.encoder_len})")
     print(f"  {arch}: {cfg.num_layers} layers ({n_attn} attention, {n_ssm} Mamba-2, {n_moe} MoE), "
           f"d_model {cfg.d_model}, {', '.join(widths)}, vocab {cfg.vocab}: "
           f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB float32), made on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     # warm the card's lazily loaded kernels (cuBLAS' heuristics) outside the timed run
-    launcher.serve(params, cfg, run, launcher.make_prompt(cfg, b, 128, cuda), 2)
-    batch = launcher.make_prompt(cfg, b, prompt, cuda)
+    launcher.serve(params, cfg, run, serve_batch(torch, cfg, b, cfg.num_patches + 128, cuda, 128), 2)
+    batch = serve_batch(torch, cfg, b, prompt, cuda, frames)
 
     stats = [] if n_moe else None
     reset_launches()
     res = launcher.serve(params, cfg, run, batch, n, keep_logits=True, moe_stats=stats)
     launches = read_launches()
     by_body = dict(flash_attention.launches_by_body)
+    by_shape = dict(flash_attention.launches_by_shape), dict(flash_decode.launches_by_shape)
     peak = torch.cuda.max_memory_allocated()
 
     step = torch.stack(res.step_logits, dim=1)                       # [B, n, V]
@@ -2775,7 +2912,11 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     expect = expected_launches(cfg, n)
     if {k: v for k, v in launches.items() if v} != expect:
         fail(f"serve {arch}: launches {launches}, expected {expect}")
-    check_prefill_body(f"serve {arch}", cell, by_body, n_attn)
+    b4_prefill = expect.get("flash_attention", 0)
+    check_prefill_body(f"serve {arch}", cell, by_body, b4_prefill)
+    if by_shape != expected_shapes(cfg, b, prompt, frames, n):
+        fail(f"serve {arch}: B4 and B5 launches by shape {by_shape}, expected "
+             f"{expected_shapes(cfg, b, prompt, frames, n)}")
     drops = None
     if n_moe:
         drops = moe_drop_summary(stats)
@@ -2804,7 +2945,8 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
         tf_step = torch.stack(steps, dim=1)
         del cache, steps
     full_stats = [] if n_moe else None
-    full = forward_lm(params, {"tokens": fed}, tf_cfg, run, mode="prefill", moe_stats=full_stats)
+    full = forward_lm(params, forced_batch(torch, cfg, fed, frames), tf_cfg, run, mode="prefill",
+                      moe_stats=full_stats)
     if n_moe and max(float(s.dropped_fraction) for s in tf_stats + full_stats) != 0.0:
         fail(f"serve {arch}: the drop-free copy dropped tokens")
     diff = float((full - tf_step).abs().max())
@@ -2839,9 +2981,9 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
         sdiff, sscale = float((got - want).abs().max()), float(want.abs().max())
         stacked = dict(bit_equal=bool(torch.equal(got, want)), max_abs_diff=sdiff, max_abs_logit=sscale,
                        b4_launches=ran)
-        if not sdiff <= 1e-5 * sscale or ran != n_attn:
+        if not sdiff <= 1e-5 * sscale or ran != b4_prefill:
             fail(f"serve {arch}: stacked prefill != unrolled: max |diff| {sdiff} (limit 1e-5 x {sscale}), "
-                 f"B4 launches {ran} of {n_attn}")
+                 f"B4 launches {ran} of {b4_prefill}")
         print(f"  stacked prefill ({cfg.num_layers} groups of 1 layer, weights restacked on the card) == "
               f"unrolled: {'bit-equal' if stacked['bit_equal'] else f'max |diff| {sdiff:.3g}'} "
               f"(limit 1e-5 x max |logits| {sscale:.4g}); B4 {ran} launches")
@@ -2872,13 +3014,10 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
               f"decode step {dec['busy_ms']} ms): taken again")
     else:
         fail(f"serve {arch}: three profiles kept no device activity in a span")
-    # the projections', MLP's and last position's unembedding flops (the
-    # experts' at top_k a token, as moe_flops counts them), and the bytes
-    # of weights one decode step reads
-    gemm_flops = (2 * b * prompt * (n_params - cfg.vocab * cfg.d_model - expert_params)
-                  + 2 * b * cfg.d_model * cfg.vocab)
-    if n_moe:
-        gemm_flops += n_moe * moe_flops(b * prompt, cfg.d_model, cfg.moe, cfg.mlp)
+    gemm_flops = serve_gemm_flops(params, cfg, b, prompt, frames)
+    # the weights a decode step reads: all but the encoder's and the patch projector's
+    decode_bytes = 4 * sum(p.numel() for name, p in params.named_parameters()
+                           if not name.startswith(("enc_", "patch_proj.")))
     print(f"profile: prefill span {pre['span_ms']:.1f} ms, device busy {pre['busy_ms']:.1f} ms "
           f"(idle {100 * pre['idle']:.1f}%); cuBLAS products {pre['gemm_ms']:.1f} ms = "
           f"{100 * pre['gemm_ms'] / pre['busy_ms']:.1f}% ({gemm_flops:.4g} flops"
@@ -2897,7 +3036,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     print(f"profile: decode step (position {n}) span {dec['span_ms']:.2f} ms, device busy "
           f"{dec['busy_ms']:.2f} ms (idle {100 * dec['idle']:.1f}%); cuBLAS products "
           f"{dec['gemm_ms']:.2f} ms = {100 * dec['gemm_ms'] / dec['busy_ms']:.1f}% (weights "
-          f"{n_params * 4 / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); {dec_kernel_text}")
+          f"{decode_bytes / dec['gemm_ms'] / 1e9:.3f} TB/s while they run); {dec_kernel_text}")
     print(f"  runtime calls: prefill {pre['calls']}, decode step {dec['calls']}")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
     split = None
@@ -2916,13 +3055,17 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
                   f"({sp['expert_tflops']:.1f} TFLOP/s), {sp['active_flops']:.4g} by moe_flops: capacity "
                   f"padding {100 * sp['padding_share']:.1f}% of the expert flops")
     metrics = dict(arch=arch, layers=cfg.num_layers, params=n_params, batch=b, prompt=prompt, tokens=n,
+                   frames=frames if cfg.encoder_layers else None, stacked=stacked,
                    prefill_ms=res.prefill_s * 1e3, prefill_tok_s=prefill_tok_s,
                    decode_ms_per_step=res.decode_s * 1e3 / n, decode_tok_s=decode_tok_s,
-                   max_memory_allocated=peak, b4_by_body=by_body, teacher_forcing_max_diff=diff,
+                   max_memory_allocated=peak, b4_by_body=by_body,
+                   launches_by_shape={name: [dict(shape=list(k), launches=v) for k, v in counts.items()]
+                                      for name, counts in zip(("flash_attention", "flash_decode"), by_shape)},
+                   teacher_forcing_max_diff=diff,
                    teacher_forcing_rel=diff / scale, argmax_agreement=agree,
                    prefill_profile=pre, decode_profile=dec, gemm_flops=gemm_flops)
     if n_moe:
-        metrics.update(moe_dropped=drops, moe_split=split, stacked=stacked, expert_params=expert_params)
+        metrics.update(moe_dropped=drops, moe_split=split, expert_params=expert_params)
     del params, res, prof
     torch.cuda.empty_cache()
     return launches, metrics
@@ -2930,9 +3073,10 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
 
 def reduced_serve(torch, family: str) -> None:
     """The reduced LM of ``SERVE_CELLS[family]`` served on the card equals
-    the same on the CPU: the same tokens, logits and decode caches within
-    1e-4 (weights made on the CPU and copied; an MoE at its real
-    capacity)."""
+    the same on the CPU: the same tokens, logits and decode caches (the
+    cross caches too) within 1e-4 (weights made on the CPU and copied; an
+    MoE at its real capacity; a vlm's patches and an audio model's frames
+    from a seeded normal)."""
     from repro_torch import convert
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve as launcher
@@ -2945,13 +3089,13 @@ def reduced_serve(torch, family: str) -> None:
     n_attn, n_ssm, n_moe = layer_kinds(cfg)
     p_cpu = init_params(cfg, seed=0, device=cpu)
     p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=cuda)
-    prompt = launcher.make_prompt(cfg, 2, cell["reduced_prompt"], cpu)
+    prompt = serve_batch(torch, cfg, 2, cell["reduced_prompt"], cpu)
     reset_launches()
-    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {"tokens": prompt["tokens"].to(cuda)}, 8,
+    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {k: v.to(cuda) for k, v in prompt.items()}, 8,
                          keep_logits=True)
     launches = {k: v for k, v in read_launches().items() if v}
     by_body = dict(flash_attention.launches_by_body)
-    check_prefill_body(f"reduced serve {arch}", cell, by_body, n_attn)
+    check_prefill_body(f"reduced serve {arch}", cell, by_body, expected_launches(cfg, 8).get("flash_attention", 0))
     if launches != expected_launches(cfg, 8):
         fail(f"reduced serve {arch}: launches {launches}, expected {expected_launches(cfg, 8)}")
     ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
@@ -2959,6 +3103,9 @@ def reduced_serve(torch, family: str) -> None:
     pairs += [(f"step {i}", a, b) for i, (a, b) in enumerate(zip(gpu.step_logits, ref.step_logits))]
     for i, (a, b) in enumerate(zip(gpu.cache.layers, ref.cache.layers)):
         pairs += [(f"cache {i}.{f}", x, y) for f, x, y in zip(a._fields, a, b)]
+    for i, (a, b) in enumerate(zip(gpu.cache.cross, ref.cache.cross)):
+        if a is not None:
+            pairs += [(f"cross {i}.{f}", x, y) for f, x, y in zip(a._fields, a, b)]
     worst = max(float((a.cpu() - b).abs().max()) for _, a, b in pairs)
     if not torch.equal(gpu.tokens.cpu(), ref.tokens) or not worst <= 1e-4:
         fail(f"reduced serve {arch}: card != CPU (tokens equal: "
@@ -2971,6 +3118,154 @@ def reduced_serve(torch, family: str) -> None:
           f"{cell['reduced_prompt']}): card == CPU, tokens {gpu.tokens[0].tolist()}, logits and caches "
           f"({'/'.join(fields)}) within {worst:.3g} (limit 1e-4); launches {launches}"
           + ("" if cell["prefill_body"] is None else f"; B4 by body {by_body}"))
+
+
+def detect_inputs(torch, cfg, repo, frame_ids, tokens: int, device) -> dict:
+    """The detector's batch: each frame's ``frame_embedding`` as
+    ``num_patches`` patches of ``patch_dim`` (a padded slot's frame -1 as
+    frame 0, as the reference example does), then ``tokens`` tokens of 1."""
+    from repro_torch.sim import frame_embedding
+
+    patches = torch.stack([frame_embedding(repo, max(int(f), 0), dim=cfg.patch_dim, patches=cfg.num_patches)
+                           for f in frame_ids]).to(device)
+    return {"tokens": torch.ones((len(frame_ids), tokens), dtype=torch.int32, device=device), "patches": patches}
+
+
+def head_checks(torch, label: str, out, frames: int, c: dict) -> dict:
+    """The detector's outputs: shapes, finite, scores and boxes in [0, 1],
+    unit features within 1e-5."""
+    shapes = {"boxes": (frames, c["max_dets"], 4), "scores": (frames, c["max_dets"]),
+              "cls_logits": (frames, c["max_dets"], c["num_classes"]),
+              "feats": (frames, c["max_dets"], c["feat_dim"])}
+    got = {f: tuple(getattr(out, f).shape) for f in shapes}
+    if got != shapes:
+        fail(f"{label}: output shapes {got}, expected {shapes}")
+    if not all(bool(torch.isfinite(x).all()) for x in out):
+        fail(f"{label}: non-finite detections")
+    lo = min(float(out.scores.min()), float(out.boxes.min()))
+    hi = max(float(out.scores.max()), float(out.boxes.max()))
+    norm_err = float((torch.linalg.vector_norm(out.feats, dim=-1) - 1).abs().max())
+    if not (0.0 <= lo and hi <= 1.0) or not norm_err <= 1e-5:
+        fail(f"{label}: scores and boxes in [{lo}, {hi}], | |feats| - 1 | up to {norm_err} (limit 1e-5)")
+    return dict(scores_boxes_range=[lo, hi], feat_norm_err=norm_err)
+
+
+def detect_path(torch) -> tuple[dict, dict]:
+    """The detector step (``build_detect_step``) on phi-3-vision at full
+    width and depth over one cohort of ``DETECT["frames"]`` bdd(1.0)
+    frames (a seeded chunk each, a seeded frame in it) batched by
+    ``RequestBatcher``: B4 once a layer a call on "wgmma_f32", the head's
+    ranges, the 50-frame call equal within 1e-4 to a call on its first
+    ``alone`` frames alone, the device time a frame (profiled); then the
+    reduced model's step on the card against the CPU within 1e-4."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.configs.exsample_paper import bdd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.detection import init_head
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.batcher import RequestBatcher
+    from repro_torch.serve.serve_step import build_detect_step
+    from repro_torch.sim import generate
+
+    c = DETECT
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg, run = ARCHS[c["arch"]], launcher.RUN
+    widths = {k: c[k] for k in ("max_dets", "num_classes", "feat_dim")}
+    repo, chunks = generate(bdd(scale=1.0).repo, device=cuda)
+    g = torch.Generator().manual_seed(c["seed"])
+    chunk_ids = torch.randperm(chunks.num_chunks, generator=g)[:c["frames"]]
+    start, length = chunks.start.cpu()[chunk_ids], chunks.length.cpu()[chunk_ids]
+    frame_ids = start + torch.randint(0, 2**30, (c["frames"],), generator=g) % length
+    batcher = RequestBatcher(batch_size=c["frames"])
+    batcher.submit(frame_ids.tolist(), chunk_ids.tolist(), cohort=0)
+    batch = batcher.next_batch()
+    if not batch.valid.all() or batcher.occupancy != 1.0:
+        fail(f"detect: the cohort's batch is not full ({batch.valid.sum()} of {c['frames']})")
+    inputs = detect_inputs(torch, cfg, repo, batch.frame_ids, c["tokens"], cuda)
+    s = inputs["tokens"].shape[1] + cfg.num_patches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
+    head = init_head(cfg.d_model, **widths, seed=1, device=cuda)
+    detect = build_detect_step(cfg, run, **widths)
+    alone = {k: v[:c["alone"]] for k, v in inputs.items()}
+    detect(params, head, alone)                                    # warm cuBLAS outside the timed calls
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = detect(params, head, inputs)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    by_body = dict(flash_attention.launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.num_layers}
+    if launches != want:
+        fail(f"detect: launches {launches}, expected {want}")
+    check_prefill_body("detect", SERVE_CELLS["vlm"], by_body, cfg.num_layers)
+    ranges = head_checks(torch, "detect", out, c["frames"], c)
+    few = detect(params, head, alone)
+    diff = max(float((a[:c["alone"]] - b).abs().max()) for a, b in zip(out, few))
+    if not diff <= 1e-4:
+        fail(f"detect: the {c['frames']}-frame call != its first {c['alone']} frames alone: max |diff| {diff}")
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        time.sleep(CAPTURE_PAD_S)
+        with record_function("serve.detect"):
+            detect(params, head, inputs)
+            torch.cuda.synchronize()
+        time.sleep(CAPTURE_PAD_S)
+    share = device_share(prof, "serve.detect", "flash_attention")
+    layer_params = sum(p.numel() for name, p in params.named_parameters() if name.startswith("layer_"))
+    attn_ops = cfg.num_layers * 4 * cfg.resolved_head_dim * visible_pairs(s, s, True) * c["frames"] * cfg.num_heads
+    flops = (2.0 * c["frames"] * (s * layer_params + cfg.num_patches * cfg.patch_dim * cfg.d_model)
+             + 2.0 * c["frames"] * sum(p.numel() for p in head.parameters()) + attn_ops)
+    ms_frame = call_s * 1e3 / c["frames"]
+    print(f"  detector: {cfg.name} full width and depth ({sum(p.numel() for p in params.parameters()):,} "
+          f"parameters), head max_dets {c['max_dets']}, num_classes {c['num_classes']}, feat_dim {c['feat_dim']}; "
+          f"one cohort of {c['frames']} bdd(1.0) frames (chunks {chunk_ids[:4].tolist()}..., batch occupancy "
+          f"{batcher.occupancy:.2f}), S = {s} ({cfg.num_patches} patches + {c['tokens']} tokens)")
+    print(f"  detector call: {call_s * 1e3:.1f} ms = {ms_frame:.2f} ms a frame; {flops:.4g} flops "
+          f"({flops / call_s / 1e12:.1f} TFLOP/s); launches {launches}, B4 by body {by_body}; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; scores and boxes in [{ranges['scores_boxes_range'][0]:.4g}, "
+          f"{ranges['scores_boxes_range'][1]:.4g}], | |feats| - 1 | <= {ranges['feat_norm_err']:.3g}; "
+          f"first {c['alone']} frames alone: max |diff| {diff:.3g} (limit 1e-4)")
+    print(f"profile: detector call span {share['span_ms']:.1f} ms, device busy {share['busy_ms']:.1f} ms "
+          f"(idle {100 * share['idle']:.1f}%); cuBLAS products {share['gemm_ms']:.1f} ms = "
+          f"{100 * share['gemm_ms'] / share['busy_ms']:.1f}%; B4 {share['kernel_ms']:.1f} ms = "
+          f"{100 * share['kernel_share']:.1f}%; the rest {share['busy_ms'] - share['gemm_ms'] - share['kernel_ms']:.1f} ms")
+    metrics = dict(arch=cfg.name, frames=c["frames"], seq=s, call_ms=call_s * 1e3, ms_per_frame=ms_frame,
+                   flops=flops, tflops=flops / call_s / 1e12, max_memory_allocated=peak, b4_by_body=by_body,
+                   alone_max_diff=diff, profile=share, **ranges)
+    del params, head, out, few, prof, inputs
+    torch.cuda.empty_cache()
+
+    # the reduced model's step: card == CPU
+    rcfg = scale_down(cfg)
+    p_cpu = init_params(rcfg, seed=0, device=cpu)
+    h_cpu = init_head(rcfg.d_model, **widths, seed=1, device=cpu)
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), rcfg, device=cuda)
+    h_gpu = convert.head_from_numpy(convert.params_to_numpy(h_cpu), d_model=rcfg.d_model, **widths, device=cuda)
+    r_inputs = detect_inputs(torch, rcfg, repo, batch.frame_ids[:10], 16 - rcfg.num_patches, cpu)
+    r_detect = build_detect_step(rcfg, run, **widths)
+    before = flash_attention.launches
+    gpu = r_detect(p_gpu, h_gpu, {k: v.to(cuda) for k, v in r_inputs.items()})
+    ran = flash_attention.launches - before
+    ref = r_detect(p_cpu, h_cpu, r_inputs)
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(gpu, ref))
+    if not worst <= 1e-4 or ran != rcfg.num_layers:
+        fail(f"reduced detect: card != CPU: max |diff| {worst} (limit 1e-4), B4 launches {ran}")
+    head_checks(torch, "reduced detect", gpu, 10, c)
+    print(f"  reduced detector ({rcfg.num_layers} layers, d_model {rcfg.d_model}, {rcfg.num_patches} patches + "
+          f"{16 - rcfg.num_patches} tokens, 10 frames): card == CPU within {worst:.3g} (limit 1e-4); B4 {ran}")
+    metrics["reduced_max_diff"] = worst
+    return launches, metrics
 
 
 def bf16_prefill_path(torch) -> tuple[dict, dict]:
@@ -3200,6 +3495,9 @@ def main() -> int:
               f"{cell.get('reduced_layers') or 2} layers:")
         serve_launches[family], serve_metrics[family] = serve_path(torch, family)
         reduced_serve(torch, family)
+    phase(f"detector step: {DETECT['arch']} at full width and depth, one cohort of {DETECT['frames']} bdd(1.0) "
+          f"frames of {ARCHS[DETECT['arch']].num_patches} patches + {DETECT['tokens']} tokens; reduced card vs CPU:")
+    detect_launches, detect_metrics = detect_path(torch)
     phase(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
     bf16_launches, bf16_metrics = bf16_prefill_path(torch)
     reduced_bf16_prefill(torch)
@@ -3232,20 +3530,39 @@ def main() -> int:
          serve_launches["gemma"]["flash_attention"]),
         ("flash_attention_wgmma", ("flash_attention", *B4_BF16), b4_src, b4_tpu,
          bf16_launches["flash_attention_wgmma"]),
-        ("flash_decode", ("flash_decode", *B5_SERVE[:6]), b5_src, b5_tpu,
+        ("flash_decode", ("flash_decode", *B5_SERVE), b5_src, b5_tpu,
          serve_launches["dense"]["flash_decode"]),
-        ("flash_decode_d256", ("flash_decode", *B5_GEMMA[:6]), b5_src, b5_tpu,
+        ("flash_decode_d256", ("flash_decode", *B5_GEMMA), b5_src, b5_tpu,
          serve_launches["gemma"]["flash_decode"]),
         ("ssd_scan", ("ssd_scan", *B6_SHAPES[0]),
          "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
          serve_launches["ssm"]["ssd_scan"]),
         ("flash_attention_d64", ("flash_attention", *B4_MOE), b4_src, b4_tpu,
          serve_launches["moe"]["flash_attention"]),
-        ("flash_decode_d64", ("flash_decode", *B5_MOE[:6]), b5_src, b5_tpu,
+        ("flash_decode_d64", ("flash_decode", *B5_MOE), b5_src, b5_tpu,
          serve_launches["moe"]["flash_decode"]),
         ("ssd_scan_hybrid", ("ssd_scan", *B6_HYBRID),
          "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:77",
          serve_launches["hybrid"]["ssd_scan"]),
+        ("flash_attention_vlm", ("flash_attention", *B4_VLM), b4_src, b4_tpu,
+         serve_launches["vlm"]["flash_attention"]),
+        ("flash_attention_detect", ("flash_attention", *B4_DETECT), b4_src, b4_tpu,
+         detect_launches["flash_attention"]),
+        # whisper's prefill: the encoder, the decoder's self-attention and the cross-attention, each
+        # row with the launches of its own shape
+        ("flash_attention_full_d64", ("flash_attention", *B4_AUDIO), b4_src, b4_tpu,
+         shape_launches(serve_metrics["audio"], "flash_attention", B4_AUDIO)),
+        ("flash_attention_audio_self", ("flash_attention", *B4_AUDIO_SELF), b4_src, b4_tpu,
+         shape_launches(serve_metrics["audio"], "flash_attention", B4_AUDIO_SELF)),
+        ("flash_attention_cross", ("flash_attention", *B4_CROSS), b4_src, b4_tpu,
+         shape_launches(serve_metrics["audio"], "flash_attention", B4_CROSS)),
+        ("flash_decode_vlm", ("flash_decode", *B5_VLM), b5_src, b5_tpu,
+         serve_launches["vlm"]["flash_decode"]),
+        # whisper's decode: over the self caches and over the cross caches
+        ("flash_decode_audio_self", ("flash_decode", *B5_AUDIO_SELF), b5_src, b5_tpu,
+         shape_launches(serve_metrics["audio"], "flash_decode", B5_AUDIO_SELF)),
+        ("flash_decode_cross", ("flash_decode", *B5_CROSS), b5_src, b5_tpu,
+         shape_launches(serve_metrics["audio"], "flash_decode", B5_CROSS)),
     ):
         row = rows[key]
         summary.append(dict(
@@ -3267,7 +3584,8 @@ def main() -> int:
                       "mesh": mesh_metrics}))
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "serve_moe": serve_metrics["moe"],
-                      "serve_hybrid": serve_metrics["hybrid"], "prefill_bf16": bf16_metrics}))
+                      "serve_hybrid": serve_metrics["hybrid"], "serve_vlm": serve_metrics["vlm"],
+                      "serve_audio": serve_metrics["audio"], "detect": detect_metrics, "prefill_bf16": bf16_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
                                    "cosine_scan": cosine_launches["scan"],
                                    "cosine_multi": cosine_launches["multi"],
@@ -3283,7 +3601,9 @@ def main() -> int:
                                    "elastic": mesh_launches["elastic"],
                                    "serve": serve_launches["dense"], "serve_gemma": serve_launches["gemma"],
                                    "serve_ssm": serve_launches["ssm"], "serve_moe": serve_launches["moe"],
-                                   "serve_hybrid": serve_launches["hybrid"], "prefill_bf16": bf16_launches}}))
+                                   "serve_hybrid": serve_launches["hybrid"], "serve_vlm": serve_launches["vlm"],
+                                   "serve_audio": serve_launches["audio"], "detect": detect_launches,
+                                   "prefill_bf16": bf16_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,9 +2,8 @@
 stack (``ARCHS``, ``get_config``) and the paper's own
 evaluation setups (``exsample_paper``).
 
-Counterpart of ``repro.configs``, data only.  The port's model runs the
-dense, ssm, moe and hybrid families; vlm and audio raise
-``NotImplementedError`` there.
+Counterpart of ``repro.configs``, data only.  The port's model runs
+every family: dense, ssm, moe, hybrid, vlm and audio.
 """
 from __future__ import annotations
 

@@ -10,8 +10,13 @@ uint32[Q, 2]) converts the same way, and so does the multi-query driver's
 scratch row past its capacity, added here and stripped by ``to_numpy``).
 The LM's parameters travel as the reference's own nested dict of numpy
 arrays (``params_from_numpy``, ``params_to_numpy``), key for key, the
-unrolled tree or the stacked one (``models.stacked.stack_schema``), and a
-Mamba-2 layer's decode cache as ``{"conv", "ssm"}``.
+unrolled tree or the stacked one (``models.stacked.stack_schema``), the
+vlm's ``patch_proj`` and the audio encoder's ``enc_{i}`` included; so do
+the detection head's and the surrogate's trees (``head_from_numpy``,
+``surrogate_from_numpy``).  A Mamba-2 layer's decode cache travels as
+``{"conv", "ssm"}``, an attention layer's as ``{"k", "v"}``, and a whole
+``DecodeCache`` as ``{"layers", "pos", "cross"}`` (a cross entry of None
+stays None).
 Nothing here imports the reference package.
 """
 from __future__ import annotations
@@ -27,10 +32,11 @@ from repro_torch.core.matcher import MatcherState
 from repro_torch.core.state import SamplerState
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models.layers import ParamNode, empty_params
+from repro_torch.models.detection import head_schema, surrogate_schema
+from repro_torch.models.layers import ParamNode, Schema, empty_params
 from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.stacked import stack_schema
-from repro_torch.models.transformer import empty_model
+from repro_torch.models.transformer import DecodeCache, KVCache, backbone_schema
 from repro_torch.serve.batcher import DetectionCache
 from repro_torch.sim.oracle import Detections
 from repro_torch.sim.repository import Repository
@@ -149,13 +155,27 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None, *, stacked: boo
     ``cfg`` on ``device`` (default: the card); with ``stacked`` the
     reference's stacked tree (``stack_schema``).  The paths and shapes must
     match exactly; the dtype (float32 or bfloat16) is the arrays' own."""
+    return _tree_from_numpy(tree, stack_schema(cfg)[0] if stacked else backbone_schema(cfg), device)
+
+
+def head_from_numpy(tree: dict, *, d_model: int, max_dets: int, num_classes: int, feat_dim: int,
+                    device=None) -> ParamNode:
+    """The reference's detection-head tree (``head_schema``'s) as a ``ParamNode``."""
+    schema = head_schema(d_model, max_dets=max_dets, num_classes=num_classes, feat_dim=feat_dim)
+    return _tree_from_numpy(tree, schema, device)
+
+
+def surrogate_from_numpy(tree: dict, *, embed_dim: int, hidden: int = 128, device=None) -> ParamNode:
+    """The reference's surrogate tree (``surrogate_schema``'s) as a ``ParamNode``."""
+    return _tree_from_numpy(tree, surrogate_schema(embed_dim, hidden), device)
+
+
+def _tree_from_numpy(tree: dict, schema: Schema, device) -> ParamNode:
     flat = _flatten(tree)
     dtypes = {_param_tensor(a).dtype for a in flat.values()}
     if len(dtypes) != 1:
         raise ValueError(f"parameters of mixed dtypes {dtypes}")
-    dtype = dtypes.pop()
-    params = (empty_params(stack_schema(cfg)[0], dtype, resolve(device)) if stacked
-              else empty_model(cfg, dtype, device))
+    params = empty_params(schema, dtypes.pop(), resolve(device))
     named = dict(params.named_parameters())
     if set(flat) != set(named):
         raise KeyError(f"parameter paths differ: missing {sorted(set(named) - set(flat))}, "
@@ -196,3 +216,28 @@ def mamba_cache_to_numpy(cache: MambaCache) -> dict:
     conv = cache.conv.detach()
     return {"conv": (conv.float() if conv.dtype == torch.bfloat16 else conv).cpu().numpy(),
             "ssm": cache.ssm.detach().cpu().numpy()}
+
+
+def kv_cache_from_numpy(d: dict, device=None) -> KVCache:
+    """An attention layer's cache from ``{"k", "v"}``, in the arrays' dtype."""
+    return KVCache(k=_param_tensor(d["k"]).to(resolve(device)), v=_param_tensor(d["v"]).to(resolve(device)))
+
+
+def decode_cache_from_numpy(d: dict, device=None) -> DecodeCache:
+    """A ``DecodeCache`` from ``{"layers", "pos", "cross"}``: each layer's
+    entry ``{"k", "v"}`` or ``{"conv", "ssm"}``, each cross entry
+    ``{"k", "v"}`` or None (e.g. the reference's cache with every
+    NamedTuple as ``_asdict()``)."""
+    layers = tuple(kv_cache_from_numpy(x, device) if "k" in x else mamba_cache_from_numpy(x, device)
+                   for x in d["layers"])
+    cross = tuple(None if x is None else kv_cache_from_numpy(x, device) for x in d["cross"])
+    return DecodeCache(layers=layers, pos=int(d["pos"]), cross=cross)
+
+
+def decode_cache_to_numpy(cache: DecodeCache) -> dict:
+    """The cache as ``{"layers", "pos", "cross"}`` of numpy arrays."""
+    def kv(c: KVCache) -> dict:
+        return {"k": c.k.detach().float().cpu().numpy(), "v": c.v.detach().float().cpu().numpy()}
+
+    return {"layers": [kv(c) if isinstance(c, KVCache) else mamba_cache_to_numpy(c) for c in cache.layers],
+            "pos": cache.pos, "cross": [None if c is None else kv(c) for c in cache.cross]}

@@ -34,13 +34,16 @@ def bind(lib_name: str, fn_name: str, argtypes: list, restype=ctypes.c_int) -> c
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, body: str | None = None) -> None:
-    """Add one to ``wrapper.launches`` (and to ``launches_by_body[body]``)
-    under a lock: the async runtime's workers launch from several threads."""
+def count_launch(wrapper, body: str | None = None, shape: tuple | None = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``launches_by_body[body]``
+    and ``launches_by_shape[shape]``) under a lock: the async runtime's
+    workers launch from several threads."""
     with _count_lock:
         wrapper.launches += 1
         if body is not None:
             wrapper.launches_by_body[body] += 1
+        if shape is not None:
+            wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
 
 
 def check_status(kernel: str, rc: int) -> None:

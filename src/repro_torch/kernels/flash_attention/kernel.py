@@ -61,8 +61,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,H,d]; k, v [B,T,KV,d] (CUDA, one dtype) → [B,S,H,d] in
     q.dtype, on the body ``select_body(q.dtype, d)``.  One launch; counted
-    in ``flash_attention.launches`` and, per body, in
-    ``flash_attention.launches_by_body``."""
+    in ``flash_attention.launches``, per body in
+    ``flash_attention.launches_by_body`` and per
+    (B, S, T, H, KV, d, dtype, causal) in
+    ``flash_attention.launches_by_shape``."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     check_head_dim(d)
@@ -87,9 +89,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 out.data_ptr(), b, s, t, h, kv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(causal), 1.0 / math.sqrt(d), stream)
     check_status("flash_attention", rc)
-    count_launch(flash_attention, body)
+    count_launch(flash_attention, body,
+                 (b, s, t, h, kv, d, str(q.dtype).removeprefix("torch."), bool(causal)))
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention.launches_by_shape = {}

@@ -48,7 +48,8 @@ def _sm_count(index: int) -> int:
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
     """q [B,H,d]; caches [B,T,KV,d]; cache_len int32[B] (CUDA) → [B,H,d]
-    in q.dtype.  One launch; counted in ``flash_decode.launches``."""
+    in q.dtype.  One launch; counted in ``flash_decode.launches`` and per
+    (B, H, KV, d, T, dtype) in ``flash_decode.launches_by_shape``."""
     b, h, d = q.shape
     t, kv = k_cache.shape[1], k_cache.shape[2]
     check_head_dim(d)
@@ -78,8 +79,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 cache_len.data_ptr(), out.data_ptr(), b, t, h, kv, d, splits, *q.stride()[:2],
                 *k_cache.stride()[:3], *v_cache.stride()[:3], 1.0 / math.sqrt(d), stream)
     check_status("flash_decode", rc)
-    count_launch(flash_decode)
+    count_launch(flash_decode, shape=(b, h, kv, d, t, str(q.dtype).removeprefix("torch.")))
     return out
 
 
 flash_decode.launches = 0
+flash_decode.launches_by_shape = {}

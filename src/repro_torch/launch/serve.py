@@ -1,19 +1,25 @@
-"""Serving launcher: prefill + greedy decode for a dense, ssm, moe or hybrid ``--arch``, on the card.
+"""Serving launcher: prefill + greedy decode for any ``--arch``, on the card.
 
 Counterpart of ``repro.launch.serve``, with the same flags, flow and
 prints.  Weights are random (seed 0), made on the device; the prompt is
-random tokens (seed 1).  As in the reference, decode starts from an empty
-cache at position 0 with the prefill's argmax token: the prompt's own K/V
-(attention layers) or conv window and state (Mamba-2 layers) never reach
-the decode cache (ROADMAP C5).  An ssm or hybrid prompt must be a
-multiple of min(chunk_len, length).  The MoE layers route each step's
-tokens as one group (``moe_groups`` 1, the reference launcher's).
+random tokens (seed 1), and as in the reference a vlm prompt is its first
+``prompt_len - num_patches`` tokens after ``num_patches`` zero patches,
+and an audio model's encoder reads ``prompt_len`` zero frames.  As in the
+reference, decode starts from an empty cache at position 0 with the
+prefill's argmax token: the prompt's own K/V (attention layers) or conv
+window and state (Mamba-2 layers) never reach the decode cache (ROADMAP
+C5), nor do the frames reach the zeroed cross caches (C14).  An ssm or
+hybrid prompt must be a multiple of min(chunk_len, length).  The MoE
+layers route each step's tokens as one group (``moe_groups`` 1, the
+reference launcher's).
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --batch 4 --prompt-len 2048 --tokens 64
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --batch 4 --prompt-len 2048 --tokens 64
   python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt-len 8192 --tokens 64
   python -m repro_torch.launch.serve --device cpu --arch mamba2-370m --prompt-len 64 --tokens 8
   python -m repro_torch.launch.serve --device cpu --arch jamba-1.5-large-398b --tokens 8
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --batch 4 --prompt-len 2048 --tokens 64
+  python -m repro_torch.launch.serve --device cpu --arch whisper-base --tokens 8
 
 ``--device`` defaults to ``cuda`` and fails without a card.  With
 ``--reduced``, or on the CPU, the config is ``scale_down``'s reduced one.
@@ -51,9 +57,23 @@ def model_config(arch: str, *, reduced: bool, device: torch.device) -> ModelConf
 
 
 def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, device, seed: int = 1) -> dict:
+    """The reference launcher's batch: ``prompt_len`` random tokens; a vlm
+    keeps the first ``prompt_len - num_patches`` after zero patches, an
+    audio model adds zero frames [batch, prompt_len, d_model]."""
     g = torch.Generator().manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g, dtype=torch.int32)
-    return {"tokens": tokens.to(device)}
+    out = {"tokens": tokens.to(device)}
+    if cfg.family == "vlm":
+        out = {"tokens": out["tokens"][:, :prompt_len - cfg.num_patches].contiguous(),
+               "patches": torch.zeros((batch, cfg.num_patches, cfg.patch_dim), device=device)}
+    if cfg.encoder_layers:
+        out["frames"] = torch.zeros((batch, prompt_len, cfg.d_model), device=device)
+    return out
+
+
+def prompt_len(batch: dict) -> int:
+    """The decoder's input rows a sequence: the tokens, after the patches of a vlm batch."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
 
 
 def _sync(device: torch.device) -> None:
@@ -64,14 +84,15 @@ def _sync(device: torch.device) -> None:
 def serve(params, cfg: ModelConfig, run: RunConfig, batch: dict, tokens: int, *,
           keep_logits: bool = False, moe_stats: list | None = None) -> ServeResult:
     """Prefill the prompt, then decode ``tokens`` greedy tokens per
-    sequence from a zeroed cache (KV layers of length prompt + tokens + 1;
-    Mamba-2 layers a zero conv window and state).  With a ``moe_stats``
+    sequence from a zeroed cache (KV layers of length prompt + tokens + 1,
+    the prompt's patches counted; Mamba-2 layers a zero conv window and
+    state; zeroed cross caches of ``encoder_len``).  With a ``moe_stats``
     list, each step (the prefill, then every decode step) appends the list
     of its MoE layers' ``MoEStats``."""
     prefill = build_prefill_step(cfg, run)
     decode = build_decode_step(cfg, run)
     device = batch["tokens"].device
-    b, s = batch["tokens"].shape
+    b, s = batch["tokens"].shape[0], prompt_len(batch)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -105,12 +126,11 @@ def _step_stats(moe_stats: list | None) -> list | None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="Prefill + greedy decode of a dense, ssm (mamba2), moe (dbrx, granite-moe) or "
-                    "hybrid (jamba) LM with random weights; the vlm and audio families are not "
-                    "ported yet.")
+        description="Prefill + greedy decode of an LM of any family with random weights.")
     ap.add_argument("--arch", default="gemma-7b", choices=sorted(ARCHS),
                     help="model; dense (phi3, qwen2.5, granite-20b, gemma), ssm (mamba2-370m), "
-                         "moe (dbrx-132b, granite-moe-1b-a400m) or hybrid (jamba-1.5-large-398b)")
+                         "moe (dbrx-132b, granite-moe-1b-a400m), hybrid (jamba-1.5-large-398b), "
+                         "vlm (phi-3-vision-4.2b: zero patches) or audio (whisper-base: zero frames)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)

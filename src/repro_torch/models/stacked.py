@@ -7,7 +7,10 @@ position in the period share a schema and stack into one leaf with a
 leading ``[num_groups]`` axis, under ``groups.pos_{j}``.  The reference
 runs the groups under ``lax.scan``; here they are a Python loop, and
 group ``g`` runs the unrolled forward's operations on the ``[g]`` slices
-of the stacked leaves (contiguous views, no copies).
+of the stacked leaves (contiguous views, no copies).  The vlm's patch
+projector and the audio encoder's layers stay unstacked, as in the
+reference: the encoder runs once, before the groups, and each group's
+cross-attention projects its own K/V from the encoder's output.
 """
 from __future__ import annotations
 
@@ -27,10 +30,13 @@ from repro_torch.models.layers import (
     norm_schema,
 )
 from repro_torch.models.transformer import (
+    _cross_kv,
     _decoder_layer,
     _decoder_layer_schema,
-    embed_tokens,
-    require_ported,
+    embed_inputs,
+    encode,
+    encoder_schema,
+    patch_proj_schema,
 )
 
 
@@ -52,15 +58,16 @@ def _stack(schema: Schema, ng: int) -> Schema:
 
 def stack_schema(cfg: ModelConfig) -> tuple[Schema, int, int]:
     """(schema, group_size, num_groups).  Layer parameters live under
-    ``groups.pos_{j}`` with a leading ``[num_groups]`` axis."""
-    require_ported(cfg)
+    ``groups.pos_{j}`` with a leading ``[num_groups]`` axis; the patch
+    projector and the encoder's layers are the unrolled tree's."""
     gs = pattern_period(cfg)
     if cfg.num_layers % gs:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole groups of {gs}")
     ng = cfg.num_layers // gs
-    s: Schema = {"embed": embed_schema(cfg.vocab, cfg.d_model)}
+    s: Schema = {"embed": embed_schema(cfg.vocab, cfg.d_model), **patch_proj_schema(cfg)}
     s["groups"] = {f"pos_{j}": _stack(_decoder_layer_schema(cfg, j), ng) for j in range(gs)}
     s["norm_f"] = norm_schema(cfg.norm, cfg.d_model)
+    s.update(encoder_schema(cfg))
     return s, gs, ng
 
 
@@ -94,17 +101,18 @@ def forward_lm_stacked(params, batch: dict, cfg: ModelConfig, run: RunConfig, *,
                        mode: str = "train", moe_groups: int = 1, last_only: bool = False,
                        moe_stats: list | None = None) -> torch.Tensor:
     """``forward_lm``'s semantics on the stacked tree (``stack_schema``)."""
-    require_ported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     gs = pattern_period(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_inputs(params, batch, cfg)
+    cross_out = encode(params, batch, cfg, run)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for g in range(cfg.num_layers // gs):
         for j in range(gs):
             pl = _group(params["groups"][f"pos_{j}"], g)
+            cross_kv = None if cross_out is None else _cross_kv(pl["cross"], cross_out, cfg)
             x = _decoder_layer(pl, x, cfg, run, j, positions=positions, moe_groups=moe_groups,
-                               moe_stats=moe_stats)
+                               moe_stats=moe_stats, cross_kv=cross_kv)
     x = apply_norm(cfg.norm, params["norm_f"], x)
     if last_only:
         x = x[:, -1:]

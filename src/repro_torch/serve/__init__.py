@@ -1,7 +1,7 @@
 """Serving substrate: the request batcher, the multi-query driver's dedup
 and detection cache (``batcher``), the tenant service over the async slot
-driver (``service``), and the LM's prefill and decode steps
-(``serve_step``).  The hash-sharded cache comes with a later slice."""
+driver (``service``), and the LM's prefill and decode steps and the
+detector step (``serve_step``).  The hash-sharded cache comes with a later slice."""
 from repro_torch.serve.batcher import (
     Batch,
     DetectionCache,

@@ -440,10 +440,12 @@ def test_flash_attention_kernel_equals_plain(card, b, s, t, h, kv, d, causal, dt
     k = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     v = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     body = fa_kernel.select_body(dtype, d)
-    before = flash_attention.launches, flash_attention.launches_by_body[body]
+    key = (b, s, t, h, kv, d, str(dtype).removeprefix("torch."), causal)
+    before = (flash_attention.launches, flash_attention.launches_by_body[body],
+              flash_attention.launches_by_shape.get(key, 0))
     out = flash_attention(q, k, v, causal=causal)
-    assert (flash_attention.launches, flash_attention.launches_by_body[body]) == (before[0] + 1,
-                                                                                  before[1] + 1)
+    assert (flash_attention.launches, flash_attention.launches_by_body[body],
+            flash_attention.launches_by_shape[key]) == (before[0] + 1, before[1] + 1, before[2] + 1)
     ref = attention_ref(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
@@ -482,9 +484,10 @@ def test_flash_decode_kernel_equals_plain(card, b, h, kv, d, t, dtype):
     kc = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     vc = torch.randn(b, t, kv, d, generator=g).to(card, dtype)
     lens = torch.tensor(([0, 1, t, t // 2 + 3] * b)[:b], dtype=torch.int32, device=card)
-    before = flash_decode.launches
+    key = (b, h, kv, d, t, str(dtype).removeprefix("torch."))
+    before = flash_decode.launches, flash_decode.launches_by_shape.get(key, 0)
     out = flash_decode(q, kc, vc, lens)
-    assert flash_decode.launches == before + 1
+    assert (flash_decode.launches, flash_decode.launches_by_shape[key]) == (before[0] + 1, before[1] + 1)
     ref = decode_ref(q, kc, vc, lens)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=ATTN_TOL[dtype][0], atol=ATTN_TOL[dtype][1])
@@ -1178,3 +1181,98 @@ def test_stacked_prefill_on_the_card_equals_the_unrolled_one(card, arch, layers)
     want = build_prefill_step(cfg, launcher.RUN)(params, batch)
     got = build_prefill_step(cfg, RunConfig(param_dtype="float32", stacked=True))(stack_params(params, cfg), batch)
     assert torch.equal(got, want)
+
+
+# ---- the vlm and audio families and the detector step -----------------------
+
+@pytest.mark.parametrize("b,s,t,h,kv", [(2, 384, 1500, 8, 8), (1, 1500, 1500, 8, 8), (3, 70, 131, 8, 2)])
+def test_flash_attention_full_at_a_ragged_key_axis_d64(card, b, s, t, h, kv):
+    """B4 with ``causal=False`` at d = 64 and T no multiple of a tile: whisper's
+    cross-attention (S = 384, T = 1,500) and encoder (S = T = 1,500); only
+    the bound test masks the last key tile."""
+    g = torch.Generator().manual_seed(s + t)
+    q = torch.randn(b, s, h, 64, generator=g).to(card)
+    k = torch.randn(b, t, kv, 64, generator=g).to(card)
+    v = torch.randn(b, t, kv, 64, generator=g).to(card)
+    out = flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=False), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,t,lens", [(64, 1500, [1500] * 3), (96, 2113, [64, 1, 2113]), (64, 448, [0, 17, 448])])
+def test_flash_decode_one_head_a_group(card, d, t, lens):
+    """B5 at G = 1 with d ≤ 128 (``config_of<T, 1, 128>``): whisper's self and
+    cross decode (d = 64, the cross cache read whole at T = 1,500) and
+    phi-3-vision's (d = 96)."""
+    b, h = len(lens), 8
+    q, kc, vc = _decode_inputs(card, b, h, h, d, t, torch.float32, d + t)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    out = flash_decode(q, kc, vc, cache_len)
+    torch.testing.assert_close(out, decode_ref(q, kc, vc, cache_len), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-base"])
+def test_reduced_vlm_and_audio_on_the_card_equal_the_cpu(card, arch):
+    """The launcher's flow on the reduced model with random patches or
+    frames: tokens, logits, self and cross caches within 1e-4; B4 once a
+    layer (whisper: its encoder's and cross layers too), B5 once a layer and
+    token (whisper: twice)."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cfg = scale_down(ARCHS[arch])
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=card)
+    prompt = launcher.make_prompt(cfg, 2, 32, "cpu")
+    g = torch.Generator().manual_seed(3)
+    for key in ("patches", "frames"):
+        if key in prompt:
+            prompt[key] = torch.randn(prompt[key].shape, generator=g)
+    before = (flash_attention.launches, flash_decode.launches)
+    gpu = launcher.serve(p_gpu, cfg, launcher.RUN, {k: v.to(card) for k, v in prompt.items()}, 8, keep_logits=True)
+    ran = (flash_attention.launches - before[0], flash_decode.launches - before[1])
+    per = 2 if cfg.cross_attention else 1
+    assert ran == (cfg.num_layers * per + cfg.encoder_layers, cfg.num_layers * per * 8)
+    ref = launcher.serve(p_cpu, cfg, launcher.RUN, prompt, 8, keep_logits=True)
+    assert torch.equal(gpu.tokens.cpu(), ref.tokens)
+    pairs = [(gpu.prefill_logits, ref.prefill_logits)] + list(zip(gpu.step_logits, ref.step_logits))
+    for a, b in zip(gpu.cache.layers + gpu.cache.cross, ref.cache.layers + ref.cache.cross):
+        if a is not None:
+            pairs += list(zip(a, b))
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_detect_step_on_the_card_equals_the_cpu(card):
+    """The detector step on the reduced phi-3-vision over frame embeddings
+    of the simulated store: every output within 1e-4 of the CPU's, B4 once
+    a layer, scores and boxes in [0, 1], unit features."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.detection import init_head
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.serve_step import build_detect_step
+    from repro_torch.sim import RepoSpec, frame_embedding, generate
+
+    cfg = scale_down(ARCHS["phi-3-vision-4.2b"])
+    widths = dict(max_dets=16, num_classes=8, feat_dim=8)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu), cfg, device=card)
+    h_cpu = init_head(cfg.d_model, **widths, device="cpu")
+    h_gpu = convert.head_from_numpy(convert.params_to_numpy(h_cpu), d_model=cfg.d_model, **widths, device=card)
+    repo, _ = generate(RepoSpec(video_lengths=[5000], num_instances=60, chunk_frames=1000), device="cpu")
+    patches = torch.stack([frame_embedding(repo, f, dim=cfg.patch_dim, patches=cfg.num_patches)
+                           for f in range(0, 5000, 500)])
+    batch = {"tokens": torch.ones((10, 16), dtype=torch.int32), "patches": patches}
+    detect = build_detect_step(cfg, launcher.RUN, **widths)
+    before = flash_attention.launches
+    gpu = detect(p_gpu, h_gpu, {k: v.to(card) for k, v in batch.items()})
+    assert flash_attention.launches == before + cfg.num_layers
+    ref = detect(p_cpu, h_cpu, batch)
+    for a, b in zip(gpu, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert 0 <= float(gpu.scores.min()) and float(gpu.scores.max()) <= 1
+    assert 0 <= float(gpu.boxes.min()) and float(gpu.boxes.max()) <= 1
+    torch.testing.assert_close(torch.linalg.vector_norm(gpu.feats, dim=-1).cpu(), torch.ones(10, 16))

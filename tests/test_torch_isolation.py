@@ -50,7 +50,8 @@ def test_no_jax_or_reference_imports_in_the_source():
             "core/distributed.py", "distributed/fault_tolerance.py", "examples/quickstart.py",
             "bench/async_compose.py", "serve/service.py", "serve/batcher.py", "launch/serve_search.py",
             "launch/serve_http.py", "launch/mesh.py", "distributed/elastic.py", "data/framestore.py",
-            "bench/sharded.py", "bench/plan_compose.py", "examples/search_distributed.py"} <= modules
+            "bench/sharded.py", "bench/plan_compose.py", "examples/search_distributed.py",
+            "models/detection.py", "examples/serve_detector.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -71,7 +72,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.bench import async_compose, multiquery, plan_compose, savings, sharded
-    from repro_torch.examples import quickstart, search_distributed
+    from repro_torch.examples import quickstart, search_distributed, serve_detector
     from repro_torch.device import resolve
     from repro_torch.launch import search, serve, serve_http, serve_search
 
@@ -109,6 +110,12 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "phi3-medium-14b", "--reduced", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "mamba2-370m", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "phi-3-vision-4.2b", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "whisper-base", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_detector.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         serve_search.main(["--scale", "0.02"])
     with pytest.raises(RuntimeError, match="cuda"):

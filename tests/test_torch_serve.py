@@ -183,15 +183,25 @@ def test_init_is_seeded_by_path_not_by_process():
     assert float(out.stdout) == float(torch.from_numpy(a["layer_1"]["attn"]["wk"]).double().sum())
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-base"])
-def test_families_not_ported_raise(arch):
-    cfg = scale_down(ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_decode_cache(cfg, 1, 4, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_serve.main(["--device", "cpu", "--arch", arch, "--tokens", "1"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_arch_builds_a_schema_and_a_decode_cache(arch):
+    """Every family of ``ARCHS`` builds on the CPU: the reduced model's
+    parameters (the reference's paths and shapes) and its zeroed decode
+    cache (the reference's per-layer and cross shapes)."""
+    cfg, jcfg = scale_down(ARCHS[arch]), j_scale_down(J_ARCHS[arch])
+    params = init_params(cfg, device="cpu")
+    ref = jax.eval_shape(lambda: j_init_params(jcfg, jax.random.PRNGKey(0)))
+    want = {jax.tree_util.keystr(k, simple=True, separator="."): v.shape
+            for k, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert {k: tuple(v.shape) for k, v in params.named_parameters()} == want
+    cache = init_decode_cache(cfg, 2, 5, torch.float32, device="cpu")
+    jcache = j_init_decode_cache(jcfg, 2, 5, jnp.float32)
+    assert cache.pos == int(jcache.pos) == 0
+    for c, jc in zip(cache.layers + cache.cross, jcache.layers + jcache.cross, strict=True):
+        assert (c is None) == (jc is None)
+        if c is not None:
+            assert c._fields == jc._fields
+            assert [tuple(x.shape) for x in c] == [x.shape for x in jc] and not any(x.any() for x in c)
 
 
 # ---------------------------------------------------------------- prefill

@@ -37,7 +37,7 @@ RUN = t_serve.RUN
 STACKED = RunConfig(param_dtype="float32", stacked=True)
 LOGIT_TOL = 1e-4
 PORTED = ["phi3-medium-14b", "gemma-7b", "qwen2.5-32b", "granite-20b", "mamba2-370m", "dbrx-132b",
-          "granite-moe-1b-a400m", "jamba-1.5-large-398b"]
+          "granite-moe-1b-a400m", "jamba-1.5-large-398b", "phi-3-vision-4.2b", "whisper-base"]
 # (arch, layers of the reduced config): a dense, an moe, the ssm and the
 # hybrid at 8 and 16 layers (one and two groups of its period 8)
 CASES = [("phi3-medium-14b", 2), ("granite-moe-1b-a400m", 2), ("dbrx-132b", 2), ("mamba2-370m", 2),
