@@ -38,9 +38,19 @@ decode to teacher forcing (an MoE model on its drop-free copy, the vlm
 without patches, whisper over zero frames), and each reduced LM on the card
 to the same on the CPU; then the detector step on phi-3-vision at full
 width over one cohort of 50 bdd(1.0) frames (each call's rows independent,
-the reduced step card against CPU); last, prefill
+the reduced step card against CPU); then prefill
 phi3-medium-14b in bfloat16 at full depth, whose attention runs on B4's
-bf16 tensor-core ("wgmma") body.  The float32 prefills' attention, gemma's
+bf16 tensor-core ("wgmma") body; last, training: qwen2.5-32b at full width
+cut to 2 layers, 5 AdamW steps of 4 microbatches of 4,096 tokens (the loss
+falling, B4 and its hand-written backward once a layer and a microbatch,
+every gradient finite, the attention projections' nonzero, one step
+profiled) and 2 with the 8-bit moments; the reduced dense, moe, vlm and
+audio models trained on the card against the CPU (ssm and hybrid raise:
+B6 has no backward yet); the train launcher on the card with a checkpoint
+and a resume.  B4's backward is checked against its plain version, beside
+SDPA's backward, in the kernel phase.  The multi path's CPU checks are
+pinned as digests (MULTI_PINNED, like the mesh cells'), and so are
+the main path's and the baselines' (SCAN_PINNED).  The float32 prefills' attention, gemma's
 heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
 
     python3 chip_smoke.py
@@ -149,6 +159,21 @@ MESH_PINNED = dict(sharded1="d6268cf5cd7b75c08dec05e0e2046aff7c8e3d5375d8ebd7d72
                    sharded4="2d9eec59857f4219b9c5ae48b576cb0cbc1c780e452296fb59fa6ace6f7c457f",
                    multi_sharded="a534d5878c16f22a18ba7bb3a40bc5ed70015caee8650b6020784aa221515c75",
                    elastic="5c61a453da64e4217c2dfcc06bf5f09a5fdf945fb3b8da70f47e5cb2fb736726")
+# the bdd(1.0) multi path's check on the CPU (MULTI_PLAN cut to MULTI_CHECK_STEPS frames a query), oracle
+# and noisy detector, as result_digest's SHA-256, printed by `python chip_smoke.py --multi-cpu DETECTOR` on
+# the card machine's CPU (47.9 and 51.0 s there): run live, they left no room for the training phases
+MULTI_PINNED = dict(oracle="16c1b4f383f6f6b6bdb52bc296f3266d12c4dc229b707d8836bf73cbd7daebe7",
+                    noisy="7e4e144f6e923b7df3e7ba19b589994c995e508cc8fac8f86cbcb3a9cad098a8")
+# the main path's checks on the CPU (MAIN_PLAN cut to MAIN_CHECK_STEPS frames: dashcam and bdd with the
+# oracle, bdd with the noisy detector) as result_digest's SHA-256, and the baselines' (random+ over
+# BASELINE_CHECK_STEPS frames, greedy's whole run) as baseline_digest's, printed by
+# `python chip_smoke.py --scan-cpu` on a CPU whose --multi-cpu oracle digest equals MULTI_PINNED's, at 1
+# and 4 threads alike: run live they took ~40-55 s of this script, which the live plan_compose arms need
+SCAN_PINNED = {"dashcam(scale=1.0)": "302bf2855ac604ec86e5f92a81ec3aaf20088466539b2113bac2a335ae840a09",
+               "bdd(scale=1.0)": "43a0d0a3cdd4e4d7d3dcc99773667e2b62f498d332e8aa6fc3bf404726d31349",
+               "bdd(scale=1.0) noisy": "23da1967ae254dab7f920258cca2cd9150f455eb4af4c67c284b6d534d979c4a",
+               "randomplus": "83cc1cc7f7e65d9a4ecf046fba6f6757203477bb909683f86e4416949f78dfd9",
+               "greedy": "d2cbc0c6bf31331bd50f21023a485448517d4f554120a97eeabf1d635ca753e5"}
 # the scan whose Thompson prior the repository index warms (prior_weight > 0), card against CPU
 PRIOR_SCAN_PLAN = dict(MAIN_PLAN, max_steps=1000)
 PRIOR_WEIGHT = 50.0
@@ -341,6 +366,27 @@ B6_SHAPES = (
 B6_PHASES = ("acs", "cb", "chunk_state", "state_pass", "chunk_scan")
 
 
+# training.  B4's backward (csrc/flash_attention_bwd.cu) against its plain version at
+# (B, S, T, H, KV, d, causal): the train cell's (one microbatch of qwen2.5-32b), whisper-base's
+# encoder (full, T ragged to the tiles) and cross-attention (S != T), one G = 1 row at d = 256; each
+# of dQ, dK, dV within BWD_RTOL·max |ref| (float32 FMAs against float32 einsums, summed in other orders)
+BWD_TRAIN = (1, 4096, 4096, 40, 8, 128, True)
+BWD_SHAPES = (BWD_TRAIN, (16, 1500, 1500, 8, 8, 64, False), (16, 384, 1500, 8, 8, 64, False),
+              (1, 2048, 2048, 16, 16, 256, True))
+BWD_RTOL = 1e-4
+# the train cell: qwen2.5-32b (the reference train launcher's default arch) at full width, its 64
+# layers cut to 2 (the whole model does not fit one card with its AdamW state), float32 (the
+# launcher's), the train_4k sequence, 4 microbatches of 1 a step, lr 1e-2 on one fixed batch, then
+# 2 steps with the 8-bit moments
+TRAIN = dict(arch="qwen2.5-32b", layers=2, batch=4, seq=4096, microbatches=4, lr=1e-2, steps=5, steps_8bit=2)
+# reduced training, card against CPU: the families whose kernels have a backward (dense, moe, vlm,
+# audio: B4 only); ssm and hybrid need B6's (ROADMAP A13.6b) and must raise on the card
+TRAIN_REDUCED = ("qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base")
+TRAIN_RAISES = ("mamba2-370m", "jamba-1.5-large-398b")
+# the train launcher on the card, its reduced config, checkpoints at steps 5 and 10
+LAUNCH_ARGV = ["--reduced", "--steps", "12", "--ckpt-every", "5", "--batch", "8", "--seq", "64"]
+
+
 _T0 = time.perf_counter()
 
 
@@ -391,20 +437,18 @@ def device_events(prof):
 
 def device_ms(fn, *, n: int = 50) -> float | None:
     """Device time per call of ``fn``: the summed durations of the device
-    activities it launches, from torch.profiler (CUPTI).  None when the
-    profiler records no device activity."""
+    activities its ``n`` calls launch, from torch.profiler (CUPTI), counted
+    between witness kernels (:func:`witnessed_events`), so that a capture
+    that lost activities is taken again rather than read low.  None when
+    none of 3 captures was whole (late in the script whole runs of
+    captures lose their first activities: :func:`timed_row` then takes
+    the whole row from CUDA events) or it holds no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(CAPTURE_PAD_S)
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(CAPTURE_PAD_S)
-    total_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
+    events = witnessed_events(lambda: [fn() for _ in range(n)], tries=3)
+    total_us = sum(e.time_range.elapsed_us() for e in events or [])
     return total_us / n / 1e3 if total_us > 0 else None
 
 
@@ -553,24 +597,23 @@ SPARES = 16
 CAPTURES = dict(captures=0, fewest_fills_kept=SPARES, retakes=0)
 
 
-def kernels_a_call(fn, *, tries: int = 5) -> list[str]:
-    """The device kernels one call of ``fn`` launches, by name (profiler).
-
-    The call is bracketed by witness kernels (``torch.cuda._sleep``), two on
-    each side on the same stream, and padded with host time (CAPTURE_PAD_S,
-    longer at each try).  A capture that lacks any of the four witnesses, or
-    holds a kernel of ``fn`` outside them, lost device activities and is
-    taken again, up to ``tries`` times; the check fails if none was whole.
-    A capture has been seen to lose its first device activities, one, two or
-    more of them, and in every try of one call: so each starts with SPARES
-    fills, waited for before the witnesses, which take that loss; the fills
-    that remain ahead of the first witness are not counted.  Before a retake
-    a throwaway capture of one fill closes the profiler's session once more.
+def witnessed_events(run, *, tries: int = 5) -> list | None:
+    """The device activities that ``run()`` launches, in time order, from
+    a capture in which they are bracketed by witness kernels
+    (``torch.cuda._sleep``), two on each side on the same stream, padded
+    with host time (CAPTURE_PAD_S, longer at each try).  A capture that
+    lacks any of the four witnesses, or holds an activity of ``run``
+    outside them, lost device activities and is taken again, up to
+    ``tries`` times; None if none was whole.  A capture has been seen to
+    lose its first device activities, one, two or more of them, and in
+    every try of one call: so each starts with SPARES fills, waited for
+    before the witnesses, which take that loss; the fills that remain
+    ahead of the first witness are not counted.  Before a retake a
+    throwaway capture of one fill closes the profiler's session once more.
     CAPTURES tallies the captures, the fewest fills one kept, the retakes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     spare = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(tries):
@@ -587,23 +630,37 @@ def kernels_a_call(fn, *, tries: int = 5) -> list[str]:
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
-            fn()
+            run()
             torch.cuda._sleep(1000)
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(pad)
-        names = [e.name for e in sorted(device_events(prof), key=lambda e: e.time_range.start)]
-        kept = next((i for i, n in enumerate(names) if SPARE not in n), len(names))
-        names = names[kept:]
+        events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+        kept = next((i for i, e in enumerate(events) if SPARE not in e.name), len(events))
+        events = events[kept:]
         CAPTURES["captures"] += 1
         CAPTURES["fewest_fills_kept"] = min(CAPTURES["fewest_fills_kept"], kept)
-        spin = [WITNESS in n for n in names]
+        spin = [WITNESS in e.name for e in events]
         if sum(spin) == 4 and spin[:2] == [True, True] and spin[-2:] == [True, True]:
-            return names[2:-2]
+            return events[2:-2]
         print(f"  (profiler capture kept {kept} of its {SPARES} leading fills and saw {sum(spin)} of its 4 "
-              f"witness kernels among {len(names)} device activities after them, in the order "
-              f"{['w' if w else 'k' for w in spin]}; taken again)")
-    fail(f"the profiler saw {fn} bracketed by its 4 witness kernels in none of {tries} captures")
+              f"witness kernels among {len(events)} device activities after them, in the order "
+              f"{['w' if w else 'k' for w in spin][:40]}; taken again)")
+    return None
+
+
+def kernels_a_call(fn, *, tries: int = 5) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name, from a
+    witnessed capture (:func:`witnessed_events`); fails if no capture of
+    ``tries`` was whole."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = witnessed_events(fn, tries=tries)
+    if events is None:
+        fail(f"the profiler saw {fn} bracketed by its 4 witness kernels in none of {tries} captures")
+    return [e.name for e in events]
 
 
 def check_b6_build(info: dict) -> None:
@@ -683,17 +740,19 @@ def timed_row(kernel, plain, *, library=None, n=50, plain_n=None, inner=20, reps
     of the first two (CUDA events around ``inner`` calls, median of
     ``reps``; the host's launch rate bounds it for small kernels).  The
     bound is the larger of the bytes over HBM's rate and the operations
-    over ``ops_per_s``."""
+    over ``ops_per_s``.  Where the profiler kept no whole capture of the
+    kernel, of its plain version or of the library call, all three are
+    taken from CUDA events, so that a row never sets a device time beside
+    a host-inclusive one; ``source`` says which clock the row read."""
     row.update(ms=device_ms(kernel, n=n), plain_ms=device_ms(plain, n=plain_n or n),
                call_ms=median_ms(kernel, inner=inner, reps=reps),
                plain_call_ms=median_ms(plain, inner=inner, reps=reps),
-               library_ms=None if library is None else device_ms(library, n=n))
-    if row["ms"] is None or row["plain_ms"] is None:
-        print("    (profiler recorded no device time: ms falls back to CUDA events)")
-        row["ms"] = row["ms"] or row["call_ms"]
-        row["plain_ms"] = row["plain_ms"] or row["plain_call_ms"]
-    if library is not None and row["library_ms"] is None:
-        row["library_ms"] = median_ms(library, inner=inner, reps=reps)
+               library_ms=None if library is None else device_ms(library, n=n), source="profiler")
+    if row["ms"] is None or row["plain_ms"] is None or (library is not None and row["library_ms"] is None):
+        print("    (the profiler kept no whole capture: the kernel, its plain version and the library call all "
+              "from CUDA events)")
+        row.update(ms=row["call_ms"], plain_ms=row["plain_call_ms"], source="CUDA events",
+                   library_ms=None if library is None else median_ms(library, inner=inner, reps=reps))
     t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = row["ops"] / ops_per_s * 1e3
     row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -702,7 +761,8 @@ def timed_row(kernel, plain, *, library=None, n=50, plain_n=None, inner=20, reps
 
 def describe(row) -> str:
     lib = "" if row.get("library_ms") is None else f", library {row['library_ms'] * 1e3:.2f} us"
-    return (f"device {row['ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.2f} us{lib}), "
+    return (f"{'device' if row['source'] == 'profiler' else 'CUDA events'} {row['ms'] * 1e3:.2f} us "
+            f"(plain {row['plain_ms'] * 1e3:.2f} us{lib}), "
             f"per call with launch {row['call_ms'] * 1e3:.1f} us (plain {row['plain_call_ms'] * 1e3:.1f} us), "
             f"bound {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}, {row['bytes']} B")
 
@@ -1120,8 +1180,9 @@ def check_attention_kernels(torch, rows) -> None:
                 return F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal)
 
             rep_backend, _ = sdpa_backend(repeated)
-            rep_ms = device_ms(repeated, n=n_avg) or median_ms(repeated, inner=2 if big else 10,
-                                                                reps=3 if big else 5)
+            # by the row's clock (timed_row's source)
+            rep_ms = (device_ms(repeated, n=n_avg) if row["source"] == "profiler" else None) or \
+                median_ms(repeated, inner=2 if big else 10, reps=3 if big else 5)
             row.update(sdpa_repeat_backend=rep_backend, library_repeat_ms=rep_ms,
                        library_ms=min(row["library_ms"], rep_ms),
                        fma_bound_ms=max(row["bytes"] / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3)
@@ -1185,7 +1246,8 @@ def check_attention_kernels(torch, rows) -> None:
                         ops=2 * d * h * (k_live + v_live), splits=splits,
                         kernels_a_call=len(launched), max_abs_err=err, mean_abs_ref=mag,
                         diff_over_limit=worst, sdpa_backend=backend)
-        rep_ms = device_ms(repeated, n=20) or median_ms(repeated, inner=10, reps=5)
+        rep_ms = (device_ms(repeated, n=20) if row["source"] == "profiler" else None) or \
+            median_ms(repeated, inner=10, reps=5)
         row.update(library_gqa_ms=row["library_ms"], sdpa_repeat_backend=rep_backend,
                    library_repeat_ms=rep_ms, library_ms=min(row["library_ms"], rep_ms))
         # keyed by the lengths too: the serve row and its full-cache twin share every other field
@@ -1201,7 +1263,7 @@ def check_attention_kernels(torch, rows) -> None:
             fail(f"flash_decode at {(b, h, kv, d, t, dtype)} launched {len(launched)} device kernels a call")
         if row["ms"] > row["plain_ms"]:
             fail(f"flash_decode at {(b, h, kv, d, t, dtype, lens)}: {row['ms'] * 1e3:.1f} us, slower than "
-                 f"its plain version's {row['plain_ms'] * 1e3:.1f} us")
+                 f"its plain version's {row['plain_ms'] * 1e3:.1f} us (both by {row['source']})")
         del q, kc, vc, q4, kt, vt, kr, vr
         torch.cuda.empty_cache()
 
@@ -1317,16 +1379,15 @@ def loop_launches(name, res, counted: dict, per_round: dict, live_rounds: int) -
 
 def main_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
     """The scan kind at ``MAIN_PLAN`` on the card; the same search cut to
-    ``MAIN_CHECK_STEPS`` frames held exactly to the CPU; returns
-    (launches, metrics)."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    ``MAIN_CHECK_STEPS`` frames held exactly to the CPU (through the CPU
+    run's pinned digest, ``SCAN_PINNED``); returns (launches, metrics)."""
+    cuda = torch.device("cuda")
     cohorts = MAIN_PLAN["cohorts"]
     reset_launches()
     gpu, gpu_s, m = run_search(torch, setup, MAIN_PLAN, cuda, detector=detector)
     counted = read_launches()
     check = dict(MAIN_PLAN, max_steps=MAIN_CHECK_STEPS)
     card_check = run_search(torch, setup, check, cuda, detector=detector)[0]
-    ref, cpu_s, _ = run_search(torch, setup, check, cpu, detector=detector)
     frames = gpu.steps[0]
     rounds = frames // cohorts
     for (s, r) in gpu.trace:
@@ -1336,13 +1397,13 @@ def main_path(torch, name, setup, detector="oracle") -> tuple[dict, dict]:
         fail(f"{name}: non-finite sampler state")
     if gpu.results[0] <= 0 or frames <= 0:
         fail(f"{name}: the search found nothing ({gpu.results}, {gpu.steps})")
-    diffs = same_search(card_check, ref)
-    if diffs:
-        fail(f"{name}: card run != CPU run on {diffs}")
-    cf = ref.steps[0]
+    digest = result_digest(card_check)
+    if digest != SCAN_PINNED[name]:
+        fail(f"{name}: card run's digest {digest} != the CPU run's pinned {SCAN_PINNED[name]}")
     print(f"  {name}: M={m} chunks, {gpu.results[0]} results in {frames} frames / {rounds} rounds; "
           f"card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s ({gpu_s:.2f} s); cut to "
-          f"{MAIN_CHECK_STEPS} frames, card == CPU exactly, CPU {cf / cpu_s:.1f} frames/s ({cf} frames, {cpu_s:.2f} s)")
+          f"{MAIN_CHECK_STEPS} frames, card == CPU exactly ({card_check.steps[0]} frames: steps, results, trace, "
+          f"stats, sampler, ring, key: the CPU run's pinned digest)")
     launches = loop_launches(name, gpu, counted, {"thompson_round": 1, "match_update": cohorts}, rounds)
     if any(v for k, v in launches.items() if k not in ("thompson_round", "match_update")):
         fail(f"{name}: launches {launches}: only thompson_round and match_update may run")
@@ -1499,17 +1560,16 @@ def run_multi(torch, setup, plan_dict, device, classes=MULTI_CLASSES, around=con
 
 def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict, object]:
     """The full-width multi-query search on the card, and the same search
-    cut to ``MULTI_CHECK_STEPS`` frames a query held exactly to the CPU;
+    cut to ``MULTI_CHECK_STEPS`` frames a query held exactly to the CPU
+    (through the CPU run's pinned digest, ``MULTI_PINNED``);
     the batched fused round must run once per round
     (the z-taking B2 never) and the batched fused matcher step once per
     cohort slot.  Returns (launches, metrics, the card's SearchResult)."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cuda = torch.device("cuda")
     reset_launches()
     gpu, gpu_s, m = run_multi(torch, setup, MULTI_PLAN, cuda, detector=detector)
     counted = read_launches()
-    check = dict(MULTI_PLAN, max_steps=MULTI_CHECK_STEPS)
-    card_check = run_multi(torch, setup, check, cuda, detector=detector)[0]
-    ref, cpu_s, _ = run_multi(torch, setup, check, cpu, detector=detector)
+    card_check = run_multi(torch, setup, dict(MULTI_PLAN, max_steps=MULTI_CHECK_STEPS), cuda, detector=detector)[0]
     st = gpu.stats
     rounds, frames, cohorts = st.rounds, st.frames_sampled, MULTI_PLAN["cohorts"]
     for trace in gpu.traces:
@@ -1521,15 +1581,14 @@ def multi_path(torch, name, setup, detector="oracle") -> tuple[dict, dict, objec
         fail(f"{name}: the search found too little ({gpu.results}, {st})")
     if frames != sum(gpu.steps) or st.detector_invocations > frames:
         fail(f"{name}: inconsistent accounting {st}")
-    diffs = same_search(card_check, ref)
-    if diffs:
-        fail(f"{name}: card run != CPU run on {diffs}")
-    cf = ref.stats.frames_sampled
+    digest = result_digest(card_check)
+    if digest != MULTI_PINNED[detector]:
+        fail(f"{name}: card run's digest {digest} != the CPU run's pinned {MULTI_PINNED[detector]}")
     print(f"  {name}: M={m} chunks, Q={len(MULTI_CLASSES)} classes {list(MULTI_CLASSES)}; results "
           f"{list(gpu.results)} in steps {list(gpu.steps)}; {rounds} rounds; cut to {MULTI_CHECK_STEPS} frames a "
-          f"query, card == CPU exactly (steps, results, traces, stats, samplers, rings, keys, cache tag)")
+          f"query, card == CPU exactly (steps, results, traces, stats, samplers, rings, keys, cache tag: the "
+          f"CPU run's pinned digest)")
     print(f"    card {frames / gpu_s:.1f} frames/s {rounds / gpu_s:.2f} rounds/s ({gpu_s:.2f} s); "
-          f"CPU {cf / cpu_s:.1f} frames/s ({cf} frames, {cpu_s:.2f} s); "
           f"{frames} frames sampled, {st.detector_invocations} detector invocations, "
           f"{st.cache_hits} cache hits (hit rate {st.cache_hit_rate:.4f}), "
           f"amortization {st.amortization:.4f}x")
@@ -1687,10 +1746,11 @@ def baselines_path(torch, name, setup, exsample_frames: int) -> dict:
     one ``match_update`` launch and nothing else.  Card == CPU on the
     trace and the final carry: greedy's whole run, random+'s first
     ``BASELINE_CHECK_STEPS`` frames (the CPU's random+ takes several ms a
-    frame at bdd(1.0)).  Prints the frames each took and the savings against
+    frame at bdd(1.0)), through the CPU runs' pinned digests
+    (``SCAN_PINNED``).  Prints the frames each took and the savings against
     ExSample's ``exsample_frames`` (the oracle bdd scan's).  Returns the
     launches of the two full runs."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cuda = torch.device("cuda")
     launches, frames = {}, {}
     for policy in ("randomplus", "greedy"):
         reset_launches()
@@ -1701,14 +1761,15 @@ def baselines_path(torch, name, setup, exsample_frames: int) -> dict:
             fail(f"{name} {policy}: launches {counted} in {steps} frames: want match_update once a frame")
         check = steps if policy == "greedy" else min(steps, BASELINE_CHECK_STEPS)
         card, card_trace, _ = (out, trace, wall) if check == steps else baseline_run(torch, setup, cuda, policy, check)
-        ref, ref_trace, cpu_s = baseline_run(torch, setup, cpu, policy, check)
-        diffs = same_carry(card, ref) + (["trace"] if card_trace != ref_trace else [])
-        if diffs:
-            fail(f"{name} {policy}: card != CPU over {check} frames on {diffs}")
+        digest = baseline_digest(card, card_trace)
+        if digest != SCAN_PINNED[policy]:
+            fail(f"{name} {policy}: card run's digest over {check} frames {digest} != the CPU run's pinned "
+                 f"{SCAN_PINNED[policy]}")
         launches[policy], frames[policy] = counted, steps
         print(f"  {name} {policy}: {results} results in {steps} frames (limit {BASELINE_LIMIT}, budget "
               f"{BASELINE_STEPS}); card {wall:.2f} s = {steps / wall:.1f} frames/s, {counted['match_update'] / steps:.2f} "
-              f"match_update launches a frame; card == CPU over {check} frames (trace, carry; CPU {cpu_s:.2f} s); "
+              f"match_update launches a frame; card == CPU over {check} frames (trace, carry: the CPU run's pinned "
+              f"digest); "
               f"trace {card_trace[-3:]}")
     print(f"  {name}: savings = random+ frames / ExSample frames = {frames['randomplus']} / {exsample_frames} = "
           f"{frames['randomplus'] / max(exsample_frames, 1):.4f}x; greedy / ExSample "
@@ -1831,6 +1892,14 @@ def result_digest(res) -> str:
     return h.hexdigest()
 
 
+def baseline_digest(carry, trace) -> str:
+    """SHA-256 of what :func:`baselines_path` compares: a baseline's trace
+    and its final carry bit for bit."""
+    h = hashlib.sha256(json.dumps(trace).encode())
+    _hash_tensors(h, carry_tensors(carry))
+    return h.hexdigest()
+
+
 def elastic_digest(rec: dict) -> str:
     """SHA-256 of an :func:`elastic_record`: carry, traces, shard count,
     counters and reshard events, cache tags."""
@@ -1852,6 +1921,51 @@ def mesh_cpu_cell(name: str) -> int:
     else:
         digest = result_digest(mesh_run(torch, name, torch.device("cpu"))[0])
     print(json.dumps({"cell": name, "digest": digest, "cpu_s": round(time.perf_counter() - t0, 1)}))
+    return 0
+
+
+def multi_cpu_cell(detector: str) -> int:
+    """``python chip_smoke.py --multi-cpu DETECTOR``: the bdd(1.0) multi
+    path's check (``MULTI_PLAN`` cut to ``MULTI_CHECK_STEPS`` frames a
+    query) on the CPU; prints its digest, which MULTI_PINNED holds for the
+    card's run."""
+    import torch
+
+    from repro_torch.configs.exsample_paper import bdd
+
+    t0 = time.perf_counter()
+    res = run_multi(torch, bdd(scale=1.0), dict(MULTI_PLAN, max_steps=MULTI_CHECK_STEPS), torch.device("cpu"),
+                    detector=detector)[0]
+    print(json.dumps({"cell": f"multi {detector}", "digest": result_digest(res),
+                      "cpu_s": round(time.perf_counter() - t0, 1)}))
+    return 0
+
+
+def scan_cpu_cells() -> int:
+    """``python chip_smoke.py --scan-cpu``: the main path's checks and the
+    baselines' on the CPU, as :func:`main_path` and
+    :func:`baselines_path` take them; prints their digests, which
+    SCAN_PINNED holds for the card's runs."""
+    import torch
+
+    from repro_torch.configs.exsample_paper import bdd, dashcam
+
+    cpu = torch.device("cpu")
+    check = dict(MAIN_PLAN, max_steps=MAIN_CHECK_STEPS)
+    for name, setup, detector in (("dashcam(scale=1.0)", dashcam(scale=1.0), "oracle"),
+                                  ("bdd(scale=1.0)", bdd(scale=1.0), "oracle"),
+                                  ("bdd(scale=1.0) noisy", bdd(scale=1.0), "noisy")):
+        t0 = time.perf_counter()
+        digest = result_digest(run_search(torch, setup, check, cpu, detector=detector)[0])
+        print(json.dumps({"cell": name, "digest": digest, "cpu_s": round(time.perf_counter() - t0, 1)}))
+    for policy in ("randomplus", "greedy"):
+        t0 = time.perf_counter()
+        steps = BASELINE_CHECK_STEPS
+        if policy == "greedy":          # the card checks greedy's whole run, as many frames as it took
+            steps = int(baseline_run(torch, bdd(scale=1.0), cpu, policy, BASELINE_STEPS)[0].step)
+        out, trace, _ = baseline_run(torch, bdd(scale=1.0), cpu, policy, steps)
+        print(json.dumps({"cell": policy, "frames": steps, "digest": baseline_digest(out, trace),
+                          "cpu_s": round(time.perf_counter() - t0, 1)}))
     return 0
 
 
@@ -2604,7 +2718,7 @@ def check_ssd_kernel(torch, rows) -> None:
         print("    by launch, device us: " + ", ".join(f"{k} {v:.1f}" for k, v in row["phases_us"].items()))
         if row["ms"] > row["plain_ms"]:
             fail(f"ssd_scan at {shape}: {row['ms'] * 1e3:.1f} us, slower than its plain version's "
-                 f"{row['plain_ms'] * 1e3:.1f} us")
+                 f"{row['plain_ms'] * 1e3:.1f} us (both by {row['source']})")
         del x, dt, bm, cm, a
         torch.cuda.empty_cache()
 
@@ -3363,6 +3477,332 @@ def reduced_bf16_prefill(torch) -> None:
           f"|logits| {scale:.4g} (limit 2e-2)")
 
 
+# ------------------------------------------------------------- training
+
+def check_bwd_build(info: dict) -> None:
+    """B4's backward as built: ptxas reports its three kernels at each
+    width bucket, without spills."""
+    entries = [e for e in ptxas_entries(info["log"]) if "flash_attention_bwd" in e["name"]]
+    if len(entries) != 9:
+        fail(f"ptxas reported {len(entries)} kernels of B4's backward, expected 9 (3 kernels x 3 widths)")
+    for e in entries:
+        inst = re.search(r"(flash_attention_bwd_\w+?)I(.*?)EEv", e["name"])
+        print(f"  B4 backward {inst.group(1) + '<' + inst.group(2) + '>' if inst else e['name'][:60]}: "
+              f"{e['registers']} registers, spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
+        if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+            fail(f"B4's backward spills or went unreported: {e}")
+
+
+def check_attention_bwd(torch, rows) -> None:
+    """B4's backward (``flash_attention_bwd``, three launches a call)
+    against its plain version (``attention_bwd_ref``) on the card at
+    ``BWD_SHAPES``: each of dQ, dK and dV within ``BWD_RTOL``·max |ref|.
+    Timed beside the plain version and SDPA's backward kernels (the
+    backward of ``scaled_dot_product_attention`` on K/V repeated to H heads,
+    its graph kept: never used by the port); the bound is 10·d operations a
+    live pair at the float32 rate, or the bytes of q, k, v, o, dO in and
+    dQ, dK, dV out."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    for b, s, t, h, kv, d, causal in BWD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * s + t + h + d)
+        q, do = (torch.randn((b, s, h, d), generator=g, device="cuda") for _ in range(2))
+        k, v = (torch.randn((b, t, kv, d), generator=g, device="cuda") for _ in range(2))
+        o = flash_attention(q, k, v, causal=causal)
+        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+        torch.cuda.synchronize()
+        rel = [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(got, want)]
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        if not all(math.isfinite(r) and r <= BWD_RTOL for r in rel):
+            fail(f"flash_attention_bwd != plain at {(b, s, t, h, kv, d, causal)}: max |diff| / max |ref| of "
+                 f"dq, dk, dv {rel} (limit {BWD_RTOL})")
+        del got, want
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+        qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        backend, names = sdpa_backend(lambda: sdpa_out.backward(dot, retain_graph=True))
+        pairs = visible_pairs(s, t, causal) * b * h
+        big = pairs * d > 1e10
+        row = timed_row(lambda: flash_attention_bwd(q, k, v, o, do, causal=causal),
+                        lambda: attention_bwd_ref(q, k, v, o, do, causal=causal),
+                        library=lambda: sdpa_out.backward(dot, retain_graph=True),
+                        n=3 if big else 10, inner=2 if big else 5, reps=3, shape=[b, s, t, h, kv, d],
+                        causal=causal, bytes=4 * 2 * (q.numel() + k.numel() + v.numel()) + 8 * q.numel(),
+                        ops=10 * d * pairs, issued_ops=16 * d * pairs, max_abs_err=err, rel_err=rel,
+                        sdpa_backend=backend, body="simt")
+        rows[("flash_attention_bwd", b, s, t, h, kv, d, causal)] = row
+        print(f"  flash_attention_bwd (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {'causal' if causal else 'full'}: "
+              f"max |diff| / max |ref| dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} (limit {BWD_RTOL}); "
+              + describe(row) + f"; {16 * d * pairs / row['ms'] / 1e9:.1f} TFLOP/s issued (16·d a pair); SDPA "
+              f"backward {backend} ({', '.join(n[:50] for n in names[:3])})")
+        del q, k, v, o, do, qt, kt, vt, sdpa_out, dot
+        torch.cuda.empty_cache()
+
+
+def train_config(reduced_arch: str | None = None):
+    """The train cell's config (``TRAIN``: full width, cut in depth) or a
+    reduced arch's (``scale_down``'s) and their RunConfig."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, RunConfig, scale_down
+
+    if reduced_arch is not None:
+        return scale_down(ARCHS[reduced_arch]), RunConfig(param_dtype="float32", remat=True, microbatches=2,
+                                                          learning_rate=1e-2)
+    cfg = dataclasses.replace(ARCHS[TRAIN["arch"]], num_layers=TRAIN["layers"])
+    return cfg, RunConfig(param_dtype="float32", remat=False, microbatches=TRAIN["microbatches"],
+                          learning_rate=TRAIN["lr"])
+
+
+def train_path(torch) -> tuple[dict, dict]:
+    """qwen2.5-32b at full width cut to ``TRAIN["layers"]`` layers, float32:
+    ``TRAIN["steps"]`` AdamW steps of ``TRAIN["microbatches"]`` microbatches
+    on one fixed batch (``DeterministicTokenPipeline.batch_at(0)``), the
+    loss falling; B4's forward and backward launched once a layer and a
+    microbatch, at the cell's shape; every leaf's gradient finite and the
+    attention projections' nonzero; one step profiled (idle share, cuBLAS,
+    B4's forward and backward); then ``TRAIN["steps_8bit"]`` steps with the
+    8-bit moments.  Returns (launches of the steps, metrics)."""
+    import statistics as st
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.data.pipeline import DeterministicTokenPipeline, TrainBatchSpec
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import state_bytes
+    from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
+
+    cuda = torch.device("cuda")
+    cfg, run = train_config()
+    b, seq, k = TRAIN["batch"], TRAIN["seq"], TRAIN["microbatches"]
+    tokens = b * seq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, cuda)
+    n_params = sum(p.numel() for p in params.parameters())
+    gemm_flops = 6.0 * tokens * sum(p.numel() for p in params.parameters() if p.dim() == 2)
+    state = init_train_state(params, run)
+    batch = DeterministicTokenPipeline(TrainBatchSpec(b, seq, cfg.vocab), seed=0, device=cuda).batch_at(0)
+    step = build_train_step(cfg, run)
+    torch.cuda.synchronize()
+    print(f"  {TRAIN['arch']} cut to {cfg.num_layers} of 64 layers: {n_params:,} parameters "
+          f"({4 * n_params / 1e9:.2f} GB float32), moments {state_bytes(state.opt) / 1e9:.2f} GB; set-up "
+          f"{time.perf_counter() - t0:.1f} s; {k} microbatches of {b // k} x {seq} tokens a step")
+    reset_launches()
+    losses, step_s = [], []
+    for i in range(TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        print(f"    step {i}: loss {losses[-1]:.4f}, grad norm {float(m['grad_norm']):.4f}, lr {m['lr']:.3g}; "
+              f"{step_s[-1] * 1e3:.1f} ms")
+    launches = read_launches()
+    fwd_shapes = dict(flash_attention.launches_by_shape)
+    bwd_shapes = dict(flash_attention_bwd.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    shape = (b // k, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, "float32", True)
+    want = {shape: cfg.num_layers * k * TRAIN["steps"]}
+    if fwd_shapes != want or bwd_shapes != want or flash_attention.launches_by_body["wgmma_f32"] != want[shape]:
+        fail(f"train: B4 forward launches {fwd_shapes} ({flash_attention.launches_by_body}), backward "
+             f"{bwd_shapes}; expected {want} each, on \"wgmma_f32\"")
+    if any(v for name, v in launches.items() if name not in ("flash_attention", "flash_attention_bwd")):
+        fail(f"train: launches {launches}: only B4 and its backward may run")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and min(losses[1:]) < losses[0]):
+        fail(f"train: the loss did not fall over {TRAIN['steps']} steps: {losses}")
+    bad = [n for n, p in state.params.named_parameters() if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"train: non-finite parameters {bad}")
+
+    # every leaf's gradient on one microbatch: finite, the attention projections' nonzero
+    mb = {key: x[: b // k] for key, x in batch.items()}
+    _, grads = microbatch_grad(state.params, mb, cfg, run, moe_groups=1)
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in grads.items() if n.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv")
+            and not float(g.abs().max()) > 0]
+    n_attn = sum(n.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv") for n in grads)
+    if bad or zero or n_attn != 6 * cfg.num_layers:
+        fail(f"train: gradients non-finite {bad}, attention projections zero {zero} ({n_attn} of them)")
+    print(f"  gradients: {len(grads)} leaves finite; the {n_attn} attention projections' (wq, wk, wv, bq, bk, bv) "
+          f"nonzero, max |g| {min(float(grads[n].abs().max()) for n in grads if n.split('.')[-1] in ('wq', 'bq')):.3g}"
+          f" (least of wq, bq)")
+    del grads
+
+    for attempt in range(3):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof:
+            time.sleep(CAPTURE_PAD_S)
+            with record_function("train.step"):
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+            time.sleep(CAPTURE_PAD_S)
+        bwd = device_share(prof, "train.step", "flash_attention_bwd")
+        both = device_share(prof, "train.step", "flash_attention")
+        if bwd["busy_ms"] > 0:
+            break
+        print(f"  profile {attempt + 1} kept no device activity: taken again")
+    else:
+        fail("train: three profiles kept no device activity")
+    fwd_ms = both["kernel_ms"] - bwd["kernel_ms"]
+    step_ms = st.median(step_s[1:]) * 1e3
+    print(f"  {TRAIN['steps']} steps: losses {[round(x, 4) for x in losses]}; a step {step_ms:.1f} ms (median of "
+          f"steps 1..{TRAIN['steps'] - 1}; step 0 {step_s[0] * 1e3:.1f}) = {tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"peak {peak / 1e9:.2f} GB; B4 forward and backward {want[shape] // TRAIN['steps']} a step each at {shape}")
+    print(f"profile: a train step span {bwd['span_ms']:.1f} ms, device busy {bwd['busy_ms']:.1f} ms (idle "
+          f"{100 * bwd['idle']:.1f}%); cuBLAS products {bwd['gemm_ms']:.1f} ms = "
+          f"{100 * bwd['gemm_ms'] / bwd['busy_ms']:.1f}% ({gemm_flops:.4g} flops, "
+          f"{gemm_flops / bwd['gemm_ms'] / 1e9:.1f} TFLOP/s); B4's backward {bwd['kernel_ms']:.1f} ms = "
+          f"{100 * bwd['kernel_share']:.1f}%, its forward {fwd_ms:.1f} ms = {100 * fwd_ms / bwd['busy_ms']:.1f}%; "
+          f"the rest {bwd['busy_ms'] - bwd['gemm_ms'] - bwd['kernel_ms'] - fwd_ms:.1f} ms")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
+    del state, params, prof, m
+    torch.cuda.empty_cache()
+
+    # the 8-bit moments: fresh weights, TRAIN["steps_8bit"] steps
+    import dataclasses
+
+    run8 = dataclasses.replace(run, adam_8bit=True)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(init_params(cfg, 0, torch.float32, cuda), run8)
+    step8 = build_train_step(cfg, run8)
+    losses8, s8 = [], []
+    for _ in range(TRAIN["steps_8bit"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step8(state, batch)
+        losses8.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        s8.append(time.perf_counter() - t0)
+    peak8, bytes8 = torch.cuda.max_memory_allocated(), state_bytes(state.opt)
+    if not (all(math.isfinite(x) for x in losses8) and losses8[-1] < losses8[0]):
+        fail(f"train 8-bit: the loss did not fall: {losses8}")
+    if not abs(losses8[0] - losses[0]) <= 1e-5 * abs(losses[0]):
+        fail(f"train 8-bit: step 0's loss {losses8[0]} != the float32 run's {losses[0]} (same weights and batch)")
+    print(f"  8-bit moments: losses {[round(x, 4) for x in losses8]}, steps {[round(x * 1e3, 1) for x in s8]} ms, "
+          f"moments {bytes8 / 1e9:.2f} GB, peak {peak8 / 1e9:.2f} GB")
+    del state
+    torch.cuda.empty_cache()
+    metrics = dict(arch=TRAIN["arch"], layers=cfg.num_layers, params=n_params, batch=b, seq=seq, microbatches=k,
+                   losses=losses, step_ms=step_ms, first_step_ms=step_s[0] * 1e3, tokens_per_s=tokens / step_ms * 1e3,
+                   max_memory_allocated=peak, profile=bwd, b4_fwd_ms=fwd_ms, gemm_flops=gemm_flops,
+                   b4_launches_a_step=want[shape] // TRAIN["steps"], losses_8bit=losses8,
+                   step_ms_8bit=[x * 1e3 for x in s8], moments_bytes_8bit=bytes8, max_memory_allocated_8bit=peak8)
+    return launches, metrics
+
+
+def reduced_train(torch) -> dict:
+    """The reduced dense, moe, vlm and audio models (``TRAIN_REDUCED``) on
+    the card against the same on the CPU (weights made on the CPU and
+    copied): a microbatch's gradients, each leaf within 1e-4·max |cpu| +
+    1e-6, and 2 steps of 2 microbatches with remat, the losses within 1e-4
+    relative (not the parameters: Adam's first steps move a weight whose
+    gradient is rounding noise by ±lr, its sign the noise's); the
+    ssm and hybrid families raise NotImplementedError on the card (B6 has
+    no backward there yet, ROADMAP A13.6b)."""
+    import copy
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    out = {}
+    for arch in TRAIN_REDUCED:
+        cfg, run = train_config(arch)
+        g = torch.Generator().manual_seed(5)
+        n = 32 - (cfg.num_patches if cfg.family == "vlm" else 0)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (4, n), generator=g),
+                 "labels": torch.randint(0, cfg.vocab, (4, n), generator=g)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn((4, cfg.num_patches, cfg.patch_dim), generator=g)
+        if cfg.encoder_layers:
+            batch["frames"] = torch.randn((4, 16, cfg.d_model), generator=g)
+        weights = init_params(cfg, 0, torch.float32, cpu)
+        res = {}
+        for dev in (cuda, cpu):
+            on_dev = {key: x.to(dev) for key, x in batch.items()}
+            _, grads = microbatch_grad(copy.deepcopy(weights).to(dev), {key: x[:2] for key, x in on_dev.items()},
+                                       cfg, run, moe_groups=1)
+            state = init_train_state(copy.deepcopy(weights).to(dev), run)
+            step = build_train_step(cfg, run)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, on_dev)
+                losses.append(float(m["loss"]))
+            res[dev.type] = (losses, {n_: g_.cpu() for n_, g_ in grads.items()})
+        rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(res["cuda"][0], res["cpu"][0]))
+        worst = max(float((res["cuda"][1][n_] - g_).abs().max()) / (1e-4 * float(g_.abs().max()) + 1e-6)
+                    for n_, g_ in res["cpu"][1].items())
+        if not (rel <= 1e-4 and worst <= 1.0):
+            fail(f"reduced train {arch}: card != CPU: losses {res['cuda'][0]} vs {res['cpu'][0]}, largest gradient "
+                 f"|diff| / limit {worst}")
+        out[arch] = dict(losses_card=res["cuda"][0], losses_cpu=res["cpu"][0], loss_rel=rel, grad_diff_over_limit=worst)
+        print(f"  reduced {arch} ({cfg.family}): the gradients of a microbatch card == CPU (largest |diff| / "
+              f"(1e-4·max |g| + 1e-6) {worst:.3g}); 2 steps of 2 microbatches with remat: losses "
+              f"{[round(x, 5) for x in res['cuda'][0]]} (rel {rel:.2g})")
+    for arch in TRAIN_RAISES:
+        cfg, run = train_config(arch)
+        params = init_params(cfg, 0, torch.float32, cuda)
+        tokens = torch.zeros((1, 64), dtype=torch.int64, device=cuda)
+        try:
+            microbatch_grad(params, {"tokens": tokens, "labels": tokens}, cfg, run, moe_groups=1)
+        except NotImplementedError as exc:
+            print(f"  reduced {arch} ({cfg.family}) on the card raises NotImplementedError: {exc}")
+        else:
+            fail(f"reduced train {arch}: a gradient through B6 on the card did not raise")
+    return out
+
+
+def launcher_path(torch) -> dict:
+    """``repro_torch.launch.train`` on the card (its default device), the
+    reduced config: ``LAUNCH_ARGV`` uninterrupted, then the same stopped
+    after step 6 (its checkpoint: step 5) and run again over that
+    directory: it resumes at step 6, and its loss lines equal the
+    uninterrupted run's."""
+    import contextlib as cl
+    import io
+
+    from repro_torch.launch import train as launcher
+
+    root = ROOT / "build" / "train_launcher"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(argv, name):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            launcher.main([*argv, "--ckpt-dir", str(root / name)])
+        return buf.getvalue(), time.perf_counter() - t0
+
+    line = re.compile(r"step\s+(\d+) loss=([0-9.]+)")
+    full, full_s = run(LAUNCH_ARGV, "full")
+    cut = list(LAUNCH_ARGV)
+    cut[cut.index("--steps") + 1] = "7"
+    run(cut, "resumed")
+    resumed, resumed_s = run(LAUNCH_ARGV, "resumed")
+    want = {int(m.group(1)): m.group(2) for m in line.finditer(full)}
+    got = {int(m.group(1)): m.group(2) for m in line.finditer(resumed)}
+    ckpts = sorted(os.listdir(root / "full"))
+    shutil.rmtree(root, ignore_errors=True)
+    if "resumed from step 6" not in resumed or got != {s: x for s, x in want.items() if s >= 6} or not want:
+        fail(f"train launcher: the resumed run's lines {got} != the uninterrupted run's {want}:\n{resumed}")
+    if ckpts != ["step_10", "step_5"]:
+        fail(f"train launcher: checkpoints {ckpts}, expected step_5 and step_10")
+    print(f"  launcher {' '.join(LAUNCH_ARGV)} on the card: {full.strip().splitlines()[-1]} ({full_s:.1f} s); "
+          f"checkpoints {ckpts}; resumed from step 6 of a run stopped at 7: lines {got} == the uninterrupted run's "
+          f"({resumed_s:.1f} s)")
+    return dict(losses={s: float(x) for s, x in want.items()}, seconds=full_s)
+
+
 def main() -> int:
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -3370,6 +3810,10 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--mesh-cpu"]:
         return mesh_cpu_cell(sys.argv[2])
+    if sys.argv[1:2] == ["--multi-cpu"]:
+        return multi_cpu_cell(sys.argv[2])
+    if sys.argv[1:2] == ["--scan-cpu"]:
+        return scan_cpu_cells()
 
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3399,11 +3843,14 @@ def main() -> int:
     check_b4_build(built["flash_attention"])
     check_b5_build(built["flash_decode"])
     check_b6_build(built["ssd_scan"])
+    check_bwd_build(built["flash_attention_bwd"])
 
     phase("kernels vs plain versions on the card:")
     rows = check_kernels(torch)
     phase("attention kernels vs plain versions on the card, beside SDPA:")
     check_attention_kernels(torch, rows)
+    phase("B4's backward vs its plain version on the card, beside SDPA's backward:")
+    check_attention_bwd(torch, rows)
     phase("SSD chunk scan (B6) vs its plain version on the card:")
     check_ssd_kernel(torch, rows)
 
@@ -3501,6 +3948,14 @@ def main() -> int:
     phase(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
     bf16_launches, bf16_metrics = bf16_prefill_path(torch)
     reduced_bf16_prefill(torch)
+    phase(f"train path: {TRAIN['arch']} at full width, {TRAIN['layers']} of 64 layers, float32, {TRAIN['steps']} "
+          f"AdamW steps of {TRAIN['microbatches']} microbatches x {TRAIN['seq']} tokens on a fixed batch, lr "
+          f"{TRAIN['lr']}; then {TRAIN['steps_8bit']} steps with the 8-bit moments:")
+    train_launches, train_metrics = train_path(torch)
+    phase("reduced training, card vs CPU (dense, moe, vlm, audio); ssm and hybrid raise on the card:")
+    train_metrics["reduced"] = reduced_train(torch)
+    phase("the train launcher on the card (reduced config), with a checkpoint and a resume:")
+    train_metrics["launcher"] = launcher_path(torch)
 
     summary = []
     b4_src, b4_tpu = "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:91"
@@ -3563,6 +4018,10 @@ def main() -> int:
          shape_launches(serve_metrics["audio"], "flash_decode", B5_AUDIO_SELF)),
         ("flash_decode_cross", ("flash_decode", *B5_CROSS), b5_src, b5_tpu,
          shape_launches(serve_metrics["audio"], "flash_decode", B5_CROSS)),
+        # B4's backward replaces no TPU kernel: it computes what jax.grad of the reference's
+        # plain-jnp blocked_attention gives its train step
+        ("flash_attention_bwd", ("flash_attention_bwd", *BWD_TRAIN), "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "src/repro/models/attention.py:76", train_launches["flash_attention_bwd"]),
     ):
         row = rows[key]
         summary.append(dict(
@@ -3575,7 +4034,8 @@ def main() -> int:
         summary[-1].update({k: row[k] for k in ("body", "dtype", "needed_ops", "fma_bound_ms", "splits",
                                                  "kernels_a_call", "old_ms", "old_call_ms", "state",
                                                  "library_gqa_ms", "library_repeat_ms",
-                                                 "sdpa_backend", "sdpa_repeat_backend") if k in row})
+                                                 "sdpa_backend", "sdpa_repeat_backend", "issued_ops",
+                                                 "rel_err") if k in row})
     phase("done; the summary lines follow")
     print(f"kernels_a_call: {CAPTURES['captures']} profiler captures, the fewest leading fills one kept "
           f"{CAPTURES['fewest_fills_kept']} of {SPARES}, {CAPTURES['retakes']} retakes")
@@ -3585,7 +4045,8 @@ def main() -> int:
     print(json.dumps({"serve": serve_metrics["dense"], "serve_gemma": serve_metrics["gemma"],
                       "serve_ssm": serve_metrics["ssm"], "serve_moe": serve_metrics["moe"],
                       "serve_hybrid": serve_metrics["hybrid"], "serve_vlm": serve_metrics["vlm"],
-                      "serve_audio": serve_metrics["audio"], "detect": detect_metrics, "prefill_bf16": bf16_metrics}))
+                      "serve_audio": serve_metrics["audio"], "detect": detect_metrics, "prefill_bf16": bf16_metrics,
+                      "train": train_metrics}))
     print(json.dumps({"launches": {"scan": scan_launches, "multi": multi_launches,
                                    "cosine_scan": cosine_launches["scan"],
                                    "cosine_multi": cosine_launches["multi"],
@@ -3603,7 +4064,7 @@ def main() -> int:
                                    "serve_ssm": serve_launches["ssm"], "serve_moe": serve_launches["moe"],
                                    "serve_hybrid": serve_launches["hybrid"], "serve_vlm": serve_launches["vlm"],
                                    "serve_audio": serve_launches["audio"], "detect": detect_launches,
-                                   "prefill_bf16": bf16_launches}}))
+                                   "prefill_bf16": bf16_launches, "train": train_launches}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -84,19 +84,27 @@ class ModelConfig:
 class RunConfig:
     """Execution knobs (orthogonal to architecture).
 
-    The reference's ``RunConfig`` also carries tiling, remat, sharding,
-    optimizer and MoE knobs; the port keeps only the fields its serving
-    path reads and adds the others with the slice that first reads them.
-    ``stacked`` picks the prefill's stacked forward (``models.stacked``),
-    as in the reference.  ``moe_token_exchange`` is not here: the
-    reference reads it only for sharding hints, which the port has no
-    use for.  Nor are ``remat`` and ``sequence_parallel``, which only
-    training reads.
+    The reference's ``RunConfig`` also carries tiling, sharding and MoE
+    knobs; the port keeps the fields its serving and training paths read,
+    with the reference's defaults, and adds the others with the slice that
+    first reads them.  ``stacked`` picks the stacked forward
+    (``models.stacked``), ``remat`` recomputes each layer (each stacked
+    group) in the backward (``torch.utils.checkpoint``), and the training
+    fields feed ``train.train_step``.  Not here: ``moe_token_exchange``,
+    ``fsdp_params``, ``sequence_parallel`` and ``grad_compression``, which
+    only the mesh and the sharding hints read (ROADMAP A13.6c).
     """
 
     param_dtype: str = "bfloat16"
     probs_bf16: bool = False           # bf16 attention probabilities: not on the port's path
     stacked: bool = False              # layers stacked by pattern period (models.stacked)
+    # training
+    remat: bool = True
+    microbatches: int = 1              # gradient-accumulation chunks per step
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_8bit: bool = False            # 8-bit optimizer state
 
     def dtype(self):
         import torch

@@ -16,7 +16,10 @@ the detection head's and the surrogate's trees (``head_from_numpy``,
 ``surrogate_from_numpy``).  A Mamba-2 layer's decode cache travels as
 ``{"conv", "ssm"}``, an attention layer's as ``{"k", "v"}``, and a whole
 ``DecodeCache`` as ``{"layers", "pos", "cross"}`` (a cross entry of None
-stays None).
+stays None).  A training state travels as ``{"params", "opt": {"step",
+"m", "v"}, "step"}`` with the moments as nested dicts like the
+parameters, a quantized moment as ``{"q", "scale", "shape", "block"}``
+(``train_state_from_numpy``, ``train_state_to_numpy``).
 Nothing here imports the reference package.
 """
 from __future__ import annotations
@@ -38,6 +41,8 @@ from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.stacked import stack_schema
 from repro_torch.models.transformer import DecodeCache, KVCache, backbone_schema
 from repro_torch.serve.batcher import DetectionCache
+from repro_torch.train.optimizer import AdamWState, QTensor
+from repro_torch.train.train_step import TrainState
 from repro_torch.sim.oracle import Detections
 from repro_torch.sim.repository import Repository
 
@@ -241,3 +246,54 @@ def decode_cache_to_numpy(cache: DecodeCache) -> dict:
 
     return {"layers": [kv(c) if isinstance(c, KVCache) else mamba_cache_to_numpy(c) for c in cache.layers],
             "pos": cache.pos, "cross": [None if c is None else kv(c) for c in cache.cross]}
+
+
+_QT_FIELDS = {"q", "scale", "shape", "block"}
+
+
+def _moments_from_numpy(tree: dict, device) -> dict:
+    """A nested dict of moments as the optimizer's dict by dotted path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and set(v) == _QT_FIELDS:
+            out[k] = QTensor(q=torch.from_numpy(np.array(v["q"])).to(device),
+                             scale=torch.from_numpy(np.array(v["scale"], np.float32)).to(device),
+                             shape=tuple(int(x) for x in v["shape"]), block=int(v["block"]))
+        elif isinstance(v, dict):
+            out.update({f"{k}.{kk}": vv for kk, vv in _moments_from_numpy(v, device).items()})
+        else:
+            out[k] = torch.from_numpy(np.array(v, np.float32)).to(device)
+    return out
+
+
+def _moments_to_numpy(moments: dict) -> dict:
+    out: dict = {}
+    for path, leaf in moments.items():
+        node = out
+        *parents, name = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = ({"q": leaf.q.cpu().numpy(), "scale": leaf.scale.cpu().numpy(), "shape": tuple(leaf.shape),
+                       "block": leaf.block} if isinstance(leaf, QTensor) else leaf.detach().cpu().numpy())
+    return out
+
+
+def train_state_from_numpy(d: dict, cfg: ModelConfig, device=None, *, stacked: bool = False) -> TrainState:
+    """A ``TrainState`` from ``{"params", "opt": {"step", "m", "v"},
+    "step"}`` (the reference's state with each QTensor as ``{"q", "scale",
+    "shape", "block"}``), the parameters requiring a gradient."""
+    dev = resolve(device)
+    params = params_from_numpy(d["params"], cfg, dev, stacked=stacked)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    opt = AdamWState(step=int(d["opt"]["step"]), m=_moments_from_numpy(d["opt"]["m"], dev),
+                     v=_moments_from_numpy(d["opt"]["v"], dev))
+    return TrainState(params=params, opt=opt, step=int(d["step"]))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The state as ``train_state_from_numpy`` reads it."""
+    return {"params": params_to_numpy(state.params),
+            "opt": {"step": np.int32(state.opt.step), "m": _moments_to_numpy(state.opt.m),
+                    "v": _moments_to_numpy(state.opt.v)},
+            "step": np.int32(state.step)}

@@ -17,6 +17,7 @@ Counterparts in JAX 0.9 (``jax/_src/prng.py``, ``jax/_src/random.py``):
 * ``split``         ← ``_threefry_split_foldlike`` (partitionable mode)
 * ``fold_in``       ← ``threefry_fold_in``
 * ``random_bits``   ← ``_threefry_random_bits_partitionable`` (32-bit)
+* ``randint``       ← ``_randint`` (int32: two 32-bit draws, uint32 span)
 * ``uniform``       ← ``_uniform``
 * ``bernoulli``     ← ``_bernoulli`` (``mode="low"``)
 * ``normal``        ← ``_normal_real``: ``√2 · erfinv(u)`` with XLA's
@@ -100,6 +101,46 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     lo = _counts(math.prod(shape), key.device)
     b0, b1 = threefry2x32(*_words(key), torch.zeros_like(lo), lo)
     return (b0 ^ b1).reshape(key.shape[:-1] + shape)
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def _mul32(a, b: int) -> torch.Tensor:
+    """``a · b mod 2^32`` for uint32 words ``a`` (int64 tensor) and ``b``
+    (an int below 2^32), in 16-bit halves: the whole product overflows int64."""
+    return (((((a >> 16) * b) & 0xFFFF) << 16) + (a & 0xFFFF) * b) & _M32
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``: int32
+    ``key.shape[:-1] + shape``.  As JAX 0.9's ``_randint``: the bounds
+    clipped to int32; keys ``k1, k2 = split(key)``; two 32-bit draws
+    ``hi, lo``; in uint32, ``span = maxval - minval`` (1 when ``maxval <=
+    minval``, one more when ``maxval`` is past int32's maximum, 0 for the
+    whole range), ``multiplier = (2^16 mod span)^2 mod span`` and the
+    offset ``((hi mod span)·multiplier + lo mod span) mod span``, each
+    product and sum wrapping at 2^32 (a remainder by 0 is its dividend,
+    as in XLA); the result ``minval + offset`` wrapped to int32."""
+    out_of_range = maxval > _I32_MAX
+    lo_b = min(max(int(minval), _I32_MIN), _I32_MAX)
+    hi_b = min(max(int(maxval), _I32_MIN), _I32_MAX)
+    if hi_b <= lo_b:
+        span = 1
+    else:
+        span = (hi_b - lo_b) & _M32
+        if out_of_range:
+            span = (span + 1) & _M32
+
+    def rem(x):
+        return x % span if span else x
+
+    k = split(key, 2)
+    higher, lower = random_bits(k[..., 0, :], shape), random_bits(k[..., 1, :], shape)
+    mult = rem(2**16)
+    mult = rem((mult * mult) & _M32)
+    offset = rem((_mul32(rem(higher), mult) + rem(lower)) & _M32)
+    return (((lo_b + offset - _I32_MIN) & _M32) + _I32_MIN).to(torch.int32)
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:

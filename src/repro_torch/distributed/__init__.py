@@ -1,5 +1,6 @@
-"""Fault tolerance of the worker pools (the driver's heartbeat monitor) and
-the search's elastic mesh (``elastic``)."""
-from repro_torch.distributed.fault_tolerance import HeartbeatMonitor, WorkerInfo, WorkerState
+"""Fault tolerance of the worker pools (the driver's heartbeat monitor), the
+training launcher's restart policy and the search's elastic mesh
+(``elastic``)."""
+from repro_torch.distributed.fault_tolerance import HeartbeatMonitor, RestartPolicy, WorkerInfo, WorkerState
 
-__all__ = ["HeartbeatMonitor", "WorkerInfo", "WorkerState"]
+__all__ = ["HeartbeatMonitor", "RestartPolicy", "WorkerInfo", "WorkerState"]

@@ -1,7 +1,9 @@
-"""Failure detection and straggler tracking for the async runtime's workers.
+"""Failure detection and straggler tracking for the async runtime's
+workers, and the training launcher's restart policy.
 
-Counterpart of ``WorkerState``, ``WorkerInfo`` and ``HeartbeatMonitor`` in
-``repro.distributed.fault_tolerance`` (pure Python, no tensors).  The
+Counterpart of ``WorkerState``, ``WorkerInfo``, ``HeartbeatMonitor`` and
+``RestartPolicy`` in ``repro.distributed.fault_tolerance`` (pure Python,
+no tensors).  The
 driver feeds the monitor heartbeats, assignments and completions; a
 worker silent past ``dead_after_s`` is dead and its in-flight cohort is
 re-issued, and so is a healthy worker's cohort that has run longer than
@@ -145,3 +147,17 @@ class HeartbeatMonitor:
             for wid, w in self.workers.items()
             if w.state is not WorkerState.DEAD
         ]
+
+
+@dataclasses.dataclass(frozen=True)
+class RestartPolicy:
+    """How a run resumes after failure (read by ``launch/train.py``): a
+    checkpoint every ``checkpoint_every_steps``, so a restart loses at most
+    that many steps."""
+
+    max_restarts: int = 100
+    checkpoint_every_steps: int = 100
+    lose_at_most_steps: int = 100     # == checkpoint_every_steps by default
+
+    def should_restart(self, restart_count: int) -> bool:
+        return restart_count < self.max_restarts

@@ -29,7 +29,7 @@ from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.serve.serve_step import build_detect_step
 from repro_torch.sim import RepoSpec, frame_embedding, generate
 
-RUN = RunConfig(param_dtype="float32")
+RUN = RunConfig(param_dtype="float32", remat=False)
 MAX_DETS, NUM_CLASSES, FEAT_DIM = 8, 4, 8
 BATCH = 4
 SEQ = 16           # a frame's rows: its patches, then tokens up to 16; 16 tokens where the patches fill them

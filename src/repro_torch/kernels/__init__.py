@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the search loop's hot spots.
+"""Hand-written CUDA kernels for the search loop's and the LM's hot spots.
 
 Each kernel package mirrors ``repro.kernels.<name>``: ``kernel.py`` binds
 the CUDA C++ source in ``repro_torch/csrc/`` (built with nvcc for sm_90a
@@ -13,7 +13,7 @@ def counted_wrappers() -> dict:
     """Every kernel wrapper of the port by name.  Each adds one to its
     ``launches`` where it launches its kernel (a call captured into a CUDA
     graph counts once, however often the graph replays)."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.iou_match.kernel import (iou_matrix, iou_matrix_batched, match_update,
                                                       match_update_batched)
@@ -25,7 +25,8 @@ def counted_wrappers() -> dict:
             "thompson_round": thompson_round, "thompson_round_batched": thompson_round_batched,
             "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
             "match_update": match_update, "match_update_batched": match_update_batched,
-            "flash_attention": flash_attention, "flash_decode": flash_decode, "ssd_scan": ssd_scan}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "flash_decode": flash_decode, "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> dict:

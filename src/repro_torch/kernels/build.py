@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",   # registers, shared memory and spills, into the build log
 )
 # Every kernel source; ``name`` is the file stem under csrc/.
-SOURCES = ("thompson_choose", "iou_matrix", "flash_attention", "flash_decode", "ssd_scan")
+SOURCES = ("thompson_choose", "iou_matrix", "flash_attention", "flash_attention_bwd", "flash_decode", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()

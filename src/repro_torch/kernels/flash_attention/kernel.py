@@ -8,7 +8,11 @@ products) for bfloat16 with d a multiple of 16 up to 128, "wgmma_f32"
 (the tensor cores, three TF32 products for each float32 one) for float32
 at every width, gemma's 256 included, "simt" (float32 FMAs on the CUDA
 cores) for bfloat16 at the other widths, gemma's among them.  This is a
-dispatch by type and width, not a fallback: a launch that fails raises."""
+dispatch by type and width, not a fallback: a launch that fails raises.
+
+``flash_attention_bwd`` binds ``csrc/flash_attention_bwd.cu``, the
+gradient of the same function (float32 only), which
+``ops.attention``'s autograd function runs on the card."""
 from __future__ import annotations
 
 import ctypes
@@ -16,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import bind, check_status, count_launch
+from repro_torch.kernels._launch import bind, check_status, count_launch, require_cuda_f32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,3 +101,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
 flash_attention.launches_by_shape = {}
+
+
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal=
+    causal)`` = ``o`` for the output gradient ``do``, by
+    ``csrc/flash_attention_bwd.cu`` (see the source's note): float32,
+    contiguous, q/o/do [B,S,H,d], k/v [B,T,KV,d].  Three launches (the
+    rows' log-sum-exp and D, then dK/dV, then dQ) over [B, H, S] float32
+    scratch; counted once a call in ``flash_attention_bwd.launches``, per
+    body in ``launches_by_body`` (one, "simt") and per (B, S, T, H, KV, d,
+    dtype, causal) in ``launches_by_shape``."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    check_head_dim(d)
+    for name, x, shape in (("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape), ("o", o, q.shape),
+                           ("do", do, q.shape)):
+        require_cuda_f32(name, x, 4, q.device)
+        if x.shape != shape or x.data_ptr() % 16:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)} 16-byte aligned")
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if kv == 0 or h % kv:
+        raise ValueError(f"{h} query heads are not a multiple of {kv} KV heads")
+    if t == 0 or b * h > 65535 or s >= 2**31 or t >= 2**31:
+        raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} is outside the kernel's grid")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * s * h == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = bind("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b, s, t, h, kv, d,
+                int(causal), 1.0 / math.sqrt(d), stream)
+    check_status("flash_attention_bwd", rc)
+    count_launch(flash_attention_bwd, "simt", (b, s, t, h, kv, d, "float32", bool(causal)))
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_body = {"simt": 0}
+flash_attention_bwd.launches_by_shape = {}

@@ -2,18 +2,47 @@
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
 kernel B4, or raises if it cannot (an unsupported head dim or dtype is an
-error, never a fallback).
+error, never a fallback).  ``attention`` is differentiable: one
+``torch.autograd.Function`` whose forward is ``attention_ref`` or B4 and
+whose backward is ``attention_bwd_ref`` or ``flash_attention_bwd``, the
+kernel of ``csrc/flash_attention_bwd.cu`` (float32 on the card; a CUDA
+input of another dtype that requires a gradient raises).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        if q.device.type == "cpu":
+            o = attention_ref(q, k, v, causal=causal)
+        elif q.device.type == "cuda":
+            o = flash_attention(q, k, v, causal=causal)
+        else:
+            raise ValueError(f"no attention for device {q.device}")
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_bwd_ref(q, k, v, o, do, causal=ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                                             do.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def attention(q, k, v, *, causal: bool = True):
     """q [B,S,H,d]; k, v [B,T,KV,d] → [B,S,H,d] in q.dtype."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=causal)
-    raise ValueError(f"no attention for device {q.device}")
+    if (q.device.type == "cuda" and q.dtype != torch.float32 and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v))):
+        raise NotImplementedError(f"attention's backward on the card takes float32, got {q.dtype}")
+    return _Attention.apply(q, k, v, causal)

@@ -38,7 +38,7 @@ from repro_torch.device import resolve
 from repro_torch.models.transformer import DecodeCache, init_decode_cache, init_params
 from repro_torch.serve.serve_step import build_decode_step, build_prefill_step
 
-RUN = RunConfig(param_dtype="float32")
+RUN = RunConfig(param_dtype="float32", remat=False)
 
 
 @dataclasses.dataclass

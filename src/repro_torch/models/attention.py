@@ -5,8 +5,9 @@ in plain jnp (``blocked_attention``'s tiled online softmax and
 ``decode_attention``'s one softmax over the cache); those are the oracles
 of its Pallas kernels B4 and B5, and the port routes both through its
 CUDA counterparts instead: ``blocked_attention`` → kernel B4 (GQA by head
-index inside the kernel, so K/V arrive un-repeated), ``decode_attention``
-→ kernel B5.  On a CPU tensor the kernels' plain versions run.  The two
+index inside the kernel, so K/V arrive un-repeated; differentiable, its
+backward a kernel of its own on the card), ``decode_attention``
+→ kernel B5 (no backward: under a gradient on the card it raises).  On a CPU tensor the kernels' plain versions run.  The two
 agree with the reference within float tolerance, not bit for bit.
 """
 from __future__ import annotations

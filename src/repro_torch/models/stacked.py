@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.layers import (
@@ -36,7 +37,9 @@ from repro_torch.models.transformer import (
     embed_inputs,
     encode,
     encoder_schema,
+    grad_mode,
     patch_proj_schema,
+    remat_layers,
 )
 
 
@@ -96,24 +99,30 @@ def _group(node, g: int) -> dict:
             for name, leaf in list(node.named_parameters(recurse=False)) + list(node.named_children())}
 
 
-@torch.no_grad()
 def forward_lm_stacked(params, batch: dict, cfg: ModelConfig, run: RunConfig, *,
                        mode: str = "train", moe_groups: int = 1, last_only: bool = False,
                        moe_stats: list | None = None) -> torch.Tensor:
-    """``forward_lm``'s semantics on the stacked tree (``stack_schema``)."""
-    if mode not in ("train", "prefill"):
-        raise ValueError(f"unknown mode {mode!r}")
+    """``forward_lm``'s semantics on the stacked tree (``stack_schema``);
+    with ``run.remat`` in ``train`` mode each group is recomputed in the
+    backward, as the reference's per-group ``jax.checkpoint``."""
     gs = pattern_period(cfg)
-    x = embed_inputs(params, batch, cfg)
-    cross_out = encode(params, batch, cfg, run)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for g in range(cfg.num_layers // gs):
-        for j in range(gs):
-            pl = _group(params["groups"][f"pos_{j}"], g)
-            cross_kv = None if cross_out is None else _cross_kv(pl["cross"], cross_out, cfg)
-            x = _decoder_layer(pl, x, cfg, run, j, positions=positions, moe_groups=moe_groups,
-                               moe_stats=moe_stats, cross_kv=cross_kv)
-    x = apply_norm(cfg.norm, params["norm_f"], x)
-    if last_only:
-        x = x[:, -1:]
-    return apply_unembed(params["embed"], x)
+    with grad_mode(mode):
+        x = embed_inputs(params, batch, cfg)
+        cross_out = encode(params, batch, cfg, run)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat_layers(mode, run)
+        for g in range(cfg.num_layers // gs):
+
+            def group(x, cross_out, g=g):
+                for j in range(gs):
+                    pl = _group(params["groups"][f"pos_{j}"], g)
+                    cross_kv = None if cross_out is None else _cross_kv(pl["cross"], cross_out, cfg)
+                    x = _decoder_layer(pl, x, cfg, run, j, positions=positions, moe_groups=moe_groups,
+                                       moe_stats=moe_stats, cross_kv=cross_kv)
+                return x
+
+            x = checkpoint(group, x, cross_out, use_reentrant=False) if remat else group(x, cross_out)
+        x = apply_norm(cfg.norm, params["norm_f"], x)
+        if last_only:
+            x = x[:, -1:]
+        return apply_unembed(params["embed"], x)

@@ -1,4 +1,5 @@
-"""The LM of the serving path: prefill and decode, every family of ``ARCHS``.
+"""The LM of the serving and training paths: the forward, decode and the
+loss, every family of ``ARCHS``.
 
 Counterpart of ``repro.models.transformer`` (phi3, qwen2.5 with its QKV
 bias, granite-20b's MQA, gemma's GeGLU and wide heads; mamba2's
@@ -20,7 +21,11 @@ the Mamba-2 SSD through kernel B6, one launch per layer each; decode
 attention through kernel B5, one launch per layer and token, and one more
 per cross-attention layer and token over the whole cross cache.  The MoE
 block (``models.moe``) routes the layer's B·S tokens in ``moe_groups``
-groups and runs no kernel of its own.
+groups and runs no kernel of its own.  The forward's ``train`` mode is
+differentiable (B4's autograd function pairs it with its backward kernel
+on the card), with ``run.remat`` recomputing each layer in the backward;
+``prefill`` and decode run under ``torch.no_grad``.  ``lm_loss``,
+``pad_heads`` and ``pad_vocab`` are the reference's.
 
 Decode keeps the position as a host ``int`` and writes the new K/V rows
 into the cache in place (the reference's ``dynamic_update_slice`` returns
@@ -32,9 +37,12 @@ nothing fills them, so a decode step never reads the frames (ROADMAP C14).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve
@@ -132,6 +140,25 @@ def backbone_schema(cfg: ModelConfig) -> Schema:
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> ParamNode:
     """Random weights from ``seed``, made on ``device`` (default: the card)."""
     return materialize(backbone_schema(cfg), seed, dtype, resolve(device))
+
+
+def pad_heads(cfg: ModelConfig, multiple: int) -> ModelConfig:
+    """Head counts rounded up to ``multiple`` (the reference pads for
+    tensor-parallel sharding); the KV heads grow until they divide the
+    heads, and the head width stays the unpadded model's."""
+    h = -(-cfg.num_heads // multiple) * multiple
+    if h == cfg.num_heads:
+        return cfg
+    kv = cfg.num_kv_heads
+    while h % kv:
+        kv += 1
+    return dataclasses.replace(cfg, num_heads=h, num_kv_heads=kv, head_dim=cfg.resolved_head_dim)
+
+
+def pad_vocab(cfg: ModelConfig, multiple: int) -> ModelConfig:
+    """The vocabulary rounded up to ``multiple`` (padded ids never drawn)."""
+    v = -(-cfg.vocab // multiple) * multiple
+    return cfg if v == cfg.vocab else dataclasses.replace(cfg, vocab=v)
 
 
 # --------------------------------------------------------------------------
@@ -260,30 +287,52 @@ def encode(params, batch: dict, cfg: ModelConfig, run: RunConfig) -> torch.Tenso
     return encoder_forward(params, batch["frames"], cfg, run) if cfg.encoder_layers else None
 
 
-@torch.no_grad()
+def grad_mode(mode: str):
+    """The autograd context of a forward in ``mode``: ``prefill`` runs
+    under ``torch.no_grad``; ``train`` records a graph wherever a
+    parameter or input requires a gradient."""
+    if mode == "prefill":
+        return torch.no_grad()
+    if mode == "train":
+        return contextlib.nullcontext()
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def remat_layers(mode: str, run: RunConfig) -> bool:
+    """Whether a ``train`` forward recomputes each layer in the backward
+    (``run.remat``, as the reference's ``jax.checkpoint``)."""
+    return mode == "train" and run.remat and torch.is_grad_enabled()
+
+
 def forward_lm(params, batch: dict, cfg: ModelConfig, run: RunConfig, *,
                mode: str = "train", moe_groups: int = 1, last_only: bool = False,
                moe_stats: list | None = None) -> torch.Tensor:
     """Causal LM forward → logits [B, S, V] ([B, 1, V] with ``last_only``).
     ``batch["tokens"]`` int[B, S], with ``"patches"`` [B, P, patch_dim]
-    (vlm: S grows by P) or ``"frames"`` [B, T, D] (audio); modes ``train``
-    and ``prefill`` run the same forward (no remat or sequence sharding in
-    the port).  Each MoE layer appends its ``MoEStats`` to ``moe_stats``
-    when given."""
-    if mode not in ("train", "prefill"):
-        raise ValueError(f"unknown mode {mode!r}")
-    x = embed_inputs(params, batch, cfg)
-    cross_out = encode(params, batch, cfg, run)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.num_layers):
-        pl = params[f"layer_{i}"]
-        cross_kv = None if cross_out is None else _cross_kv(pl["cross"], cross_out, cfg)
-        x = _decoder_layer(pl, x, cfg, run, i, positions=positions, moe_groups=moe_groups,
-                           moe_stats=moe_stats, cross_kv=cross_kv)
-    x = apply_norm(cfg.norm, params["norm_f"], x)
-    if last_only:
-        x = x[:, -1:]              # only the next-token position matters
-    return apply_unembed(params["embed"], x)
+    (vlm: S grows by P) or ``"frames"`` [B, T, D] (audio).  ``prefill``
+    runs under ``torch.no_grad``; ``train`` is differentiable (B4's
+    backward on the card), and with ``run.remat`` each decoder layer runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward.
+    Each MoE layer appends its ``MoEStats`` to ``moe_stats`` when given
+    (a recomputed layer appends again)."""
+    with grad_mode(mode):
+        x = embed_inputs(params, batch, cfg)
+        cross_out = encode(params, batch, cfg, run)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat_layers(mode, run)
+        for i in range(cfg.num_layers):
+            pl = params[f"layer_{i}"]
+
+            def layer(x, cross_out, pl=pl, i=i):
+                cross_kv = None if cross_out is None else _cross_kv(pl["cross"], cross_out, cfg)
+                return _decoder_layer(pl, x, cfg, run, i, positions=positions, moe_groups=moe_groups,
+                                      moe_stats=moe_stats, cross_kv=cross_kv)
+
+            x = checkpoint(layer, x, cross_out, use_reentrant=False) if remat else layer(x, cross_out)
+        x = apply_norm(cfg.norm, params["norm_f"], x)
+        if last_only:
+            x = x[:, -1:]              # only the next-token position matters
+        return apply_unembed(params["embed"], x)
 
 
 # --------------------------------------------------------------------------
@@ -369,3 +418,15 @@ def forward_decode(params, token: torch.Tensor, cache: DecodeCache, cfg: ModelCo
     x = apply_norm(cfg.norm, params["norm_f"], x)
     logits = apply_unembed(params["embed"], x)[:, 0]
     return logits, DecodeCache(layers=tuple(layers), pos=pos + 1, cross=cache.cross)
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32: logits [..., V], labels int[...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -6,6 +6,7 @@ and PyTorch alone:
 
 Without a card they skip (the kernels have no CPU mode).
 """
+import copy
 import dataclasses
 import math
 
@@ -18,8 +19,8 @@ from _match_states import batch_case, frame_case
 from repro_torch.core.matcher import MatcherState, match_and_update
 from repro_torch.kernels._launch import bind
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched, match_update, match_update_batched
@@ -1276,3 +1277,118 @@ def test_reduced_detect_step_on_the_card_equals_the_cpu(card):
     assert 0 <= float(gpu.scores.min()) and float(gpu.scores.max()) <= 1
     assert 0 <= float(gpu.boxes.min()) and float(gpu.boxes.max()) <= 1
     torch.testing.assert_close(torch.linalg.vector_norm(gpu.feats, dim=-1).cpu(), torch.ones(10, 16))
+
+
+# ---------------------------------------------------------------- training (B4's backward)
+
+def _bwd_inputs(card, b, s, t, h, kv, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(card)
+                   for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal", [
+    (1, 256, 256, 8, 2, 128, True), (2, 100, 100, 4, 4, 64, False), (2, 64, 150, 8, 8, 64, False),
+    (1, 150, 64, 10, 2, 96, True), (1, 96, 96, 4, 4, 256, True), (1, 33, 33, 5, 1, 72, True),
+    (3, 1, 17, 2, 1, 8, False)])
+def test_flash_attention_bwd_kernel_equals_plain(card, b, s, t, h, kv, d, causal):
+    """dQ, dK, dV within 1e-4·max |ref| each; one launch counted a call."""
+    q, k, v, do = _bwd_inputs(card, b, s, t, h, kv, d, b * s + t + h + d)
+    o = flash_attention(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(x).all(), name
+        err = float((x - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()), (name, err, float(y.abs().max()))
+
+
+def test_no_gradient_is_lost_through_b4(card):
+    """A backward through the model's attention reaches wq, wk, wv and their
+    biases, as on the CPU."""
+    from repro_torch.configs import ARCHS, RunConfig, scale_down
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.train_step import microbatch_grad
+
+    cfg = scale_down(ARCHS["qwen2.5-32b"])
+    run = RunConfig(param_dtype="float32", remat=False)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    grads = {}
+    cpu_params = init_params(cfg, 0, torch.float32, "cpu")
+    for dev in (card, torch.device("cpu")):
+        before = flash_attention_bwd.launches
+        params = copy.deepcopy(cpu_params).to(dev)
+        loss, grads[dev.type] = microbatch_grad(params, {k: x.to(dev) for k, x in batch.items()}, cfg, run,
+                                                moe_groups=1)
+        if dev.type == "cuda":
+            assert flash_attention_bwd.launches == before + cfg.num_layers
+    for name, g in grads["cpu"].items():
+        c = grads["cuda"][name].cpu()
+        assert torch.isfinite(c).all(), name
+        if name.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv"):
+            assert float(c.abs().max()) > 0, name
+        assert float((c - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base"])
+def test_reduced_train_step_on_the_card_equals_the_cpu(card, arch):
+    """A microbatch's gradients within 1e-4·max |cpu| + 1e-6 each leaf, and
+    two AdamW steps of 2 microbatches with remat, the losses within 1e-4
+    relative (the parameters are not compared: Adam's first steps move a
+    weight whose gradient is rounding noise by ±lr)."""
+    from repro_torch.configs import ARCHS, RunConfig, scale_down
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
+
+    cfg = scale_down(ARCHS[arch])
+    run = RunConfig(param_dtype="float32", remat=True, microbatches=2, learning_rate=1e-2)
+    g = torch.Generator().manual_seed(5)
+    n = 32 - (cfg.num_patches if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, n), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (4, n), generator=g)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((4, cfg.num_patches, cfg.patch_dim), generator=g)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((4, 16, cfg.d_model), generator=g)
+    out = {}
+    cpu_params = init_params(cfg, 0, torch.float32, "cpu")
+    for dev in (card, torch.device("cpu")):
+        on_dev = {k: x.to(dev) for k, x in batch.items()}
+        _, grads = microbatch_grad(copy.deepcopy(cpu_params).to(dev), {k: x[:2] for k, x in on_dev.items()}, cfg,
+                                   run, moe_groups=1)
+        state = init_train_state(copy.deepcopy(cpu_params).to(dev), run)
+        step = build_train_step(cfg, run)
+        losses = []
+        for _ in range(2):
+            state, m = step(state, on_dev)
+            losses.append(float(m["loss"]))
+        out[dev.type] = (losses, {n: x.cpu() for n, x in grads.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for name, x in out["cpu"][1].items():
+        assert float((out["cuda"][1][name] - x).abs().max()) <= 1e-4 * float(x.abs().max()) + 1e-6, name
+
+
+def test_ssm_training_raises_on_the_card(card):
+    """B6 (and B5) have no backward yet: a gradient through them raises
+    rather than stop silently (ROADMAP A13.6b)."""
+    from repro_torch.configs import ARCHS, RunConfig, scale_down
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.train_step import microbatch_grad
+
+    cfg = scale_down(ARCHS["mamba2-370m"])
+    params = init_params(cfg, 0, torch.float32, card)
+    tokens = torch.zeros((1, 32), dtype=torch.int64, device=card)
+    with pytest.raises(NotImplementedError, match="A13.6b"):
+        microbatch_grad(params, {"tokens": tokens, "labels": tokens}, cfg, RunConfig(param_dtype="float32"),
+                        moe_groups=1)
+    q = torch.randn((1, 4, 64), device=card, requires_grad=True)
+    cache = torch.randn((1, 8, 4, 64), device=card)
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+
+    with pytest.raises(NotImplementedError, match="A13.6b"):
+        decode_ops.decode(q, cache, cache, torch.full((1,), 8, dtype=torch.int32, device=card))

@@ -43,7 +43,7 @@ def test_import_with_jax_blocked_loads_neither_jax_nor_repro():
 def test_no_jax_or_reference_imports_in_the_source():
     scanned = {p.relative_to(PKG).parts[0] for p in _modules()}
     assert {"core", "kernels", "serve", "sim", "launch", "models", "configs", "bench", "index", "distributed",
-            "examples", "data"} <= scanned
+            "examples", "data", "train"} <= scanned
     modules = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"models/mamba2.py", "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/ref.py", "index/store.py", "index/priors.py", "core/runtime.py",
@@ -51,7 +51,9 @@ def test_no_jax_or_reference_imports_in_the_source():
             "bench/async_compose.py", "serve/service.py", "serve/batcher.py", "launch/serve_search.py",
             "launch/serve_http.py", "launch/mesh.py", "distributed/elastic.py", "data/framestore.py",
             "bench/sharded.py", "bench/plan_compose.py", "examples/search_distributed.py",
-            "models/detection.py", "examples/serve_detector.py"} <= modules
+            "models/detection.py", "examples/serve_detector.py", "train/optimizer.py", "train/checkpoint.py",
+            "train/train_step.py", "data/pipeline.py", "launch/train.py",
+            "kernels/flash_attention/ops.py"} <= modules
     offenders = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -74,7 +76,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.bench import async_compose, multiquery, plan_compose, savings, sharded
     from repro_torch.examples import quickstart, search_distributed, serve_detector
     from repro_torch.device import resolve
-    from repro_torch.launch import search, serve, serve_http, serve_search
+    from repro_torch.launch import search, serve, serve_http, serve_search, train
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve()
@@ -120,6 +122,9 @@ def test_entry_points_default_to_the_card():
         serve_search.main(["--scale", "0.02"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve_http.main(["--scale", "0.02", "--port", "0"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1"])
+    assert train.build_parser().parse_args([]).device == "cuda"
     assert serve_search.build_parser().parse_args([]).device == "cuda"
     assert resolve("cpu").type == "cpu"
 
