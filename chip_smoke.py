@@ -54,6 +54,7 @@ the main path's and the baselines' (SCAN_PINNED).  The float32 prefills' attenti
 heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --loop-c16 N   # ROADMAP C16: jamba's teacher forcing N times, nothing else
 
 Needs one CUDA card, nvcc and the checkout's ``src/``.  Exits non-zero on
 any failure (no card, build error, kernel mismatch, search mismatch).  The
@@ -1111,6 +1112,31 @@ def attn_compare(out, ref, dtype: str) -> tuple:
     return float(diff.max()), float(mag.mean()), float((diff / limit).max())
 
 
+# the forward's lse2 (base 2) times ln 2 against attention_lse_ref: within LSE_RTOL of max |lse|
+LSE_RTOL = 1e-5
+
+
+def check_forward_lse(torch, q, k, v, out, causal: bool, label) -> float:
+    """B4's "wgmma_f32" body asked for its rows' lse2: the output keeps its
+    bits (``out`` came without lse), and lse2·ln 2 is ``attention_lse_ref``
+    within ``LSE_RTOL`` of its largest magnitude.  Returns that error over
+    the magnitude."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with_lse = flash_attention(q, k, v, causal=causal, lse=lse)
+    if not bits_equal(with_lse, out):
+        fail(f"flash_attention at {label}: the output with lse differs from the output without it")
+    want = attention_lse_ref(q, k, causal=causal)
+    rel = float((lse * math.log(2.0) - want).abs().max()) / float(want.abs().max())
+    if not (math.isfinite(rel) and rel <= LSE_RTOL):
+        fail(f"flash_attention at {label}: lse2 x ln 2 off the plain lse by {rel:.3g} x max |lse| "
+             f"(limit {LSE_RTOL})")
+    return rel
+
+
 def check_attention_kernels(torch, rows) -> None:
     """B4 and B5 against their plain versions on the card (float32 within
     1e-4; bfloat16 within about one bf16 ulp, see ATTN_RTOL), each B4 row on
@@ -1150,6 +1176,10 @@ def check_attention_kernels(torch, rows) -> None:
         if not worst <= 1.0:
             fail(f"flash_attention != plain at {(b, s, t, h, kv, d, dtype, causal)}: max |diff| {err}, "
                  f"mean |ref| {mag}, largest |diff| / limit {worst}")
+        lse_text = ""
+        if want == "wgmma_f32":
+            lse_err = check_forward_lse(torch, q, k, v, out, causal, (b, s, t, h, kv, d, dtype, causal))
+            lse_text = f"; lse2 x ln 2 within {lse_err:.3g} x max |lse| of the plain one, the output's bits unchanged"
         del out, ref
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
@@ -1192,7 +1222,7 @@ def check_attention_kernels(torch, rows) -> None:
         rows[("flash_attention", b, s, t, h, kv, d, dtype, causal)] = row
         print(f"  flash_attention (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {dtype} "
               f"{'causal' if causal else 'full'} [{want}]: max |diff| {err:.3g} (mean |ref| {mag:.3g}, "
-              f"largest |diff| / limit {worst:.3g}); " + describe(row)
+              f"largest |diff| / limit {worst:.3g}){lse_text}; " + describe(row)
               + f" ({issued:.4g} operations at {ops_per_s / 1e12:g} TFLOP/s{fma}); {lib_text} "
               f"({', '.join(n[:60] for n in names[:3])})")
         del q, k, v, qt, kt, vt
@@ -2943,6 +2973,163 @@ def moe_split(torch, params, cfg, tokens, layers: int, n: int) -> dict:
                 expert_tflops=padded / ms["experts"] / 1e9)
 
 
+@contextlib.contextmanager
+def layer_digests(out: dict):
+    """While active, a short SHA-256 of each B6 output (``mamba2.ssd_scan``'s
+    y, one a Mamba-2 layer of a prefill or forward) and of each MoE
+    routing (``moe.route``'s expert ids and slot owners, one an MoE layer
+    and a call), appended to ``out[out["phase"]]`` in call order.  Each
+    digest reads its tensor to the host, so it is kept out of timed
+    runs."""
+    from repro_torch.models import mamba2, moe
+
+    def digest(*tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
+    scan, route = mamba2.ssd_scan, moe.route
+
+    def scan_hook(*args, **kwargs):
+        y, state = scan(*args, **kwargs)
+        out.setdefault(out.get("phase", "?") + ".b6", []).append(digest(y))
+        return y, state
+
+    def route_hook(*args, **kwargs):
+        r = route(*args, **kwargs)
+        out.setdefault(out.get("phase", "?") + ".route", []).append(digest(r.top_e, r.src))
+        return r
+
+    mamba2.ssd_scan, moe.route = scan_hook, route_hook
+    try:
+        yield out
+    finally:
+        mamba2.ssd_scan, moe.route = scan, route
+
+
+def describe_digests(digests: dict) -> str:
+    """B6's digests one a layer, and the routings of a phase folded into
+    one digest (their count beside it)."""
+    parts = []
+    for key, vals in digests.items():
+        if key == "phase" or not vals:
+            continue
+        if key.endswith(".b6"):
+            parts.append(f"{key} {vals}")
+        else:
+            parts.append(f"{key} {hashlib.sha256(''.join(vals).encode()).hexdigest()[:12]} (x{len(vals)})")
+    return "; ".join(parts) or "none"
+
+
+def teacher_forcing(torch, cfg, run, params, res, n: int, frames: int, digests: dict | None = None) -> dict:
+    """Decode step t fed token t at position t against the full forward over
+    the fed tokens at t (an MoE model: both on its drop-free copy, which
+    must drop nothing): ``ok`` when max |diff| <= 1e-3 x max |logits| of the
+    forward and the argmax agrees everywhere.  ``digests["phase"]`` is set
+    to "tf_decode" and then "forward" for :func:`layer_digests`."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import forward_lm, init_decode_cache
+
+    digests = {} if digests is None else digests
+    n_moe = layer_kinds(cfg)[2]
+    b = res.tokens.shape[0]
+    fed = res.tokens[:, :n]
+    tf_cfg, tf_step = cfg, torch.stack(res.step_logits, dim=1)
+    tf_stats = []
+    if n_moe:
+        digests["phase"] = "tf_decode"
+        tf_cfg = drop_free(cfg)
+        tf_decode = launcher.build_decode_step(tf_cfg, run)
+        cache = init_decode_cache(tf_cfg, b, n + 1, torch.float32, res.tokens.device)
+        steps = []
+        for t in range(n):
+            _, lg, cache = tf_decode(params, fed[:, t:t + 1].contiguous(), cache, moe_stats=tf_stats)
+            steps.append(lg)
+        tf_step = torch.stack(steps, dim=1)
+        del cache, steps
+    digests["phase"] = "forward"
+    full_stats = [] if n_moe else None
+    full = forward_lm(params, forced_batch(torch, cfg, fed, frames), tf_cfg, run, mode="prefill",
+                      moe_stats=full_stats)
+    if n_moe and max(float(s.dropped_fraction) for s in tf_stats + full_stats) != 0.0:
+        fail(f"serve {cfg.name}: the drop-free copy dropped tokens")
+    diff = float((full - tf_step).abs().max())
+    scale = float(full.abs().max())
+    agree = float((full.argmax(-1) == tf_step.argmax(-1)).float().mean())
+    return dict(diff=diff, scale=scale, agree=agree, ok=diff <= 1e-3 * scale and agree == 1.0, cfg=tf_cfg,
+                forward_max=scale, decode_max=float(tf_step.abs().max()))
+
+
+def poison_free_memory(torch, byte: int) -> int:
+    """Fills the card's free memory, less 1 GiB, with ``byte`` (0xff: every
+    float32 read from it is NaN) and hands it back to CUDA, so that the
+    next allocations read it if they read before they write.  Returns the
+    bytes filled."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    n = max(free - (1 << 30), 0)
+    if n:
+        block = torch.empty(n, dtype=torch.uint8, device="cuda")
+        block.fill_(byte)
+        torch.cuda.synchronize()
+        del block
+    torch.cuda.empty_cache()
+    return n
+
+
+def c16_loop(torch, reps: int) -> int:
+    """ROADMAP C16: jamba-1.5-large-398b at the hybrid serve cell (full width,
+    2 of 72 layers, batch 1, prompt 2,048, 8 greedy tokens, seed 0), built
+    once, then ``reps`` times prefill -> decode -> teacher forcing, each
+    repetition after the free memory was poisoned (0xff and 0x3f bytes in
+    turn).  A line a repetition: max |logits| of the forward and of the
+    decode, a digest of each layer's B6 output and of the MoE routings of
+    each phase, and the verdict.  Returns the number of failed
+    repetitions."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    cell = SERVE_CELLS["hybrid"]
+    b, prompt, n = cell["batch"], cell["prompt"], cell["tokens"]
+    cuda = torch.device("cuda")
+    run = launcher.RUN
+    cfg = serve_config(cell, reduced=False)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=run.dtype(), device=cuda)
+    torch.cuda.synchronize()
+    print(f"  {cell['arch']} cut to {cfg.num_layers} layers, made on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{reps} repetitions of prefill [{b}x{prompt}] -> {n} decode steps -> teacher forcing")
+    launcher.serve(params, cfg, run, serve_batch(torch, cfg, b, 128, cuda, 128), 2)
+    seen, failed = {}, 0
+    for i in range(reps):
+        byte = (0xFF, 0x3F)[i % 2]
+        filled = poison_free_memory(torch, byte)
+        batch = serve_batch(torch, cfg, b, prompt, cuda)
+        digests = {"phase": "prefill+decode"}
+        t0 = time.perf_counter()
+        with layer_digests(digests):
+            res = launcher.serve(params, cfg, run, batch, n, keep_logits=True, moe_stats=[])
+            tf = teacher_forcing(torch, cfg, run, params, res, n, prompt, digests)
+        text = describe_digests(digests)
+        for key, vals in digests.items():
+            if key != "phase":
+                seen.setdefault(key, set()).add(tuple(vals))
+        failed += not tf["ok"]
+        print(f"  c16 rep {i + 1}/{reps} (free {filled / 1e9:.1f} GB poisoned with 0x{byte:02x}; "
+              f"{time.perf_counter() - t0:.1f} s): max |logits| forward {tf['forward_max']:.6g}, decode "
+              f"{tf['decode_max']:.6g}; max |decode - forward| {tf['diff']:.4g} = {tf['diff'] / tf['scale']:.3g} x; "
+              f"argmax agreement {tf['agree']:.4f}; {text}: {'pass' if tf['ok'] else 'FAIL'}", flush=True)
+        del res, tf, batch
+    stable = {key: len(v) for key, v in seen.items()}
+    print(f"  c16: {reps - failed} of {reps} repetitions passed; distinct digests per phase over the "
+          f"repetitions {stable}")
+    del params
+    torch.cuda.empty_cache()
+    return failed
+
+
 def serve_path(torch, family: str) -> tuple[dict, dict]:
     """The full-width LM serving path of ``SERVE_CELLS[family]`` through the
     launcher's functions: prefill (B4 once an attention, encoder and
@@ -2965,7 +3152,7 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
     from repro_torch.models import mamba2
     from repro_torch.models.moe import capacity
     from repro_torch.models.stacked import stack_params
-    from repro_torch.models.transformer import forward_lm, init_decode_cache, init_params
+    from repro_torch.models.transformer import init_params
 
     cell = SERVE_CELLS[family]
     arch, b, prompt, n = cell["arch"], cell["batch"], cell["prompt"], cell["tokens"]
@@ -3046,29 +3233,15 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
 
     # teacher forcing: decode step t fed token t at position t == the full
     # forward over the fed tokens at t (an MoE model: both on its drop-free copy)
-    fed = res.tokens[:, :n]
-    tf_cfg, tf_step = cfg, step
-    if n_moe:
-        tf_cfg = drop_free(cfg)
-        tf_decode = launcher.build_decode_step(tf_cfg, run)
-        cache = init_decode_cache(tf_cfg, b, n + 1, torch.float32, cuda)
-        tf_stats, steps = [], []
-        for t in range(n):
-            _, lg, cache = tf_decode(params, fed[:, t:t + 1].contiguous(), cache, moe_stats=tf_stats)
-            steps.append(lg)
-        tf_step = torch.stack(steps, dim=1)
-        del cache, steps
-    full_stats = [] if n_moe else None
-    full = forward_lm(params, forced_batch(torch, cfg, fed, frames), tf_cfg, run, mode="prefill",
-                      moe_stats=full_stats)
-    if n_moe and max(float(s.dropped_fraction) for s in tf_stats + full_stats) != 0.0:
-        fail(f"serve {arch}: the drop-free copy dropped tokens")
-    diff = float((full - tf_step).abs().max())
-    scale = float(full.abs().max())
-    agree = float((full.argmax(-1) == tf_step.argmax(-1)).float().mean())
-    if not diff <= 1e-3 * scale or agree != 1.0:
+    digests = {}
+    with layer_digests(digests):
+        tf = teacher_forcing(torch, cfg, run, params, res, n, frames, digests)
+    diff, scale, agree, tf_cfg = tf["diff"], tf["scale"], tf["agree"], tf["cfg"]
+    if not tf["ok"]:
         fail(f"serve {arch}: decode != teacher forcing: max |diff| {diff} (limit 1e-3 x max |logits| "
-             f"{scale}), argmax agreement {agree}")
+             f"{scale}), argmax agreement {agree}; max |logits| of the forward {tf['forward_max']:.6g}, of "
+             f"the decode {tf['decode_max']:.6g}; digests {describe_digests(digests)}")
+    del step, tf
     prefill_tok_s = b * prompt / res.prefill_s
     decode_tok_s = b * n / res.decode_s
     per = ", ".join(f"{k} {v // n} per token" if k == "flash_decode" else f"{k} {v} per prefill"
@@ -3082,7 +3255,6 @@ def serve_path(torch, family: str) -> tuple[dict, dict]:
           f"max |decode - forward| {diff:.4g} = "
           f"{diff / scale:.3g} x max |logits| {scale:.4g} (limit 1e-3); argmax agreement {agree:.4f} "
           f"(required 1)")
-    del full, step, tf_step
 
     stacked = None
     if cell.get("stacked"):
@@ -3480,47 +3652,110 @@ def reduced_bf16_prefill(torch) -> None:
 # ------------------------------------------------------------- training
 
 def check_bwd_build(info: dict) -> None:
-    """B4's backward as built: ptxas reports its three kernels at each
-    width bucket, without spills."""
+    """B4's backward as built: ptxas reports each of its kernels at each
+    instantiation (its D pass, the "simt" dK/dV and dQ kernels at BT = 16,
+    the "wgmma_f32" ones at each width bucket the library reports for d up
+    to 128) without spills, serializes none of its wgmmas, and the
+    library's SASS holds TF32 HGMMA instructions (where cuobjdump is there
+    to say)."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_tiles
+
+    widths = tuple(sorted({bwd_tiles(d)["width"] for d in range(8, 129, 8)}))
+    kernels = {"flash_attention_bwd_delta": (None,), "flash_attention_bwd_dkdv": (16,),
+               "flash_attention_bwd_dq": (16,), "flash_attention_bwd_dkdv_tf32": widths,
+               "flash_attention_bwd_dq_tf32": widths}
     entries = [e for e in ptxas_entries(info["log"]) if "flash_attention_bwd" in e["name"]]
-    if len(entries) != 9:
-        fail(f"ptxas reported {len(entries)} kernels of B4's backward, expected 9 (3 kernels x 3 widths)")
+    seen = set()
     for e in entries:
-        inst = re.search(r"(flash_attention_bwd_\w+?)I(.*?)EEv", e["name"])
-        print(f"  B4 backward {inst.group(1) + '<' + inst.group(2) + '>' if inst else e['name'][:60]}: "
-              f"{e['registers']} registers, spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
+        inst = re.search(r"\d(flash_attention_bwd_(?:delta|dkdv_tf32|dq_tf32|dkdv|dq))(?:ILi(\d+)E)?", e["name"])
+        if inst is None:
+            fail(f"ptxas reported an unknown kernel of B4's backward: {e['name']}")
+        label = (inst.group(1), None if inst.group(2) is None else int(inst.group(2)))
+        seen.add(label)
+        print(f"  B4 backward {label[0]}{'' if label[1] is None else f'<{label[1]}>'}: {e['registers']} registers, "
+              f"spill stores {e['spill_stores']} B, spill loads {e['spill_loads']} B")
         if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
             fail(f"B4's backward spills or went unreported: {e}")
+    want = {(name, w) for name, ws in kernels.items() for w in ws}
+    if seen != want or len(entries) != len(want):
+        fail(f"ptxas reported B4's backward kernels {sorted(seen, key=str)} ({len(entries)} entries), expected "
+             f"{sorted(want, key=str)}")
+    serialized = [line for line in info["log"].splitlines() if "serialized" in line and "flash_attention_bwd" in line]
+    if serialized:
+        fail(f"ptxas serializes B4's backward's wgmmas: {serialized}")
+    ops = sass_opcodes(info["path"])
+    if ops is None:
+        print("  B4 backward library: TF32 HGMMA not checked (no cuobjdump)")
+        return
+    hgmma = {op: n for op, n in ops.items() if op.startswith("HGMMA") and "TF32" in op.split(".")}
+    if not hgmma:
+        fail(f"B4's backward library holds no TF32 HGMMA instruction (HGMMA: "
+             f"{[op for op in ops if op.startswith('HGMMA')]})")
+    print(f"  B4 backward library: {sum(hgmma.values())} TF32 HGMMA instructions {hgmma}")
+
+
+def bwd_issued_ops(b: int, s: int, t: int, h: int, d: int, causal: bool) -> int:
+    """TF32 operations the "wgmma_f32" backward issues: over the tiles it
+    walks (masked pairs of the diagonal tiles included; the tiling as the
+    library reports it, ``bwd_tiles``), 3 products for each float32 one of
+    S^T, dP^T, dV, dK (the dK/dV kernel) and S, dP, dQ (the dQ kernel),
+    each 2·D a pair at the width bucket D."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_tiles
+
+    tiles = bwd_tiles(d)
+    width, kb, qt, qr, kt = (tiles[k] for k in ("width", "keys", "q_tile", "q_rows", "k_tile"))
+    nq = -(-s // qt)
+    kv_pairs = sum(kb * qt * (nq - (min(k0 // qt, nq) if causal else 0)) for k0 in range(0, t, kb))
+    n_k = -(-t // kt)
+    q_pairs = sum(qr * kt * (min(n_k, (q0 + qr - 1) // kt + 1) if causal else n_k) for q0 in range(0, s, qr))
+    return 3 * 2 * width * b * h * (4 * kv_pairs + 3 * q_pairs)
 
 
 def check_attention_bwd(torch, rows) -> None:
-    """B4's backward (``flash_attention_bwd``, three launches a call)
-    against its plain version (``attention_bwd_ref``) on the card at
-    ``BWD_SHAPES``: each of dQ, dK and dV within ``BWD_RTOL``·max |ref|.
-    Timed beside the plain version and SDPA's backward kernels (the
-    backward of ``scaled_dot_product_attention`` on K/V repeated to H heads,
-    its graph kept: never used by the port); the bound is 10·d operations a
-    live pair at the float32 rate, or the bytes of q, k, v, o, dO in and
-    dQ, dK, dV out."""
+    """B4's backward (``flash_attention_bwd``, three launches a call, from
+    the forward's output and lse2) against its plain version
+    (``attention_bwd_ref``) on the card at ``BWD_SHAPES``: each of dQ, dK
+    and dV within ``BWD_RTOL``·max |ref|, on the body ``select_bwd_body``,
+    and a second call the same bits.  Timed beside the plain version and
+    SDPA's backward kernels (the backward of ``scaled_dot_product_attention``
+    on K/V repeated to H heads, its graph kept: never used by the port);
+    the bound is the larger of the bytes of q, k, v, o, dO, lse in and dQ,
+    dK, dV out, and the 10·d operations a live pair that are needed, at the
+    rate of the body's arithmetic: 3 TF32 products each at the tensor
+    cores' TF32 rate for "wgmma_f32" (as the forward's rows count it), the
+    float32 rate for "simt".  Beside it: the float32-FMA bound, and what
+    the body issues ("wgmma_f32": ``bwd_issued_ops`` TF32 operations, 3 ×
+    14·d a live pair and the diagonal tiles' masked pairs; "simt": 14·d a
+    live pair as float32 FMAs)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd, select_bwd_body
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     for b, s, t, h, kv, d, causal in BWD_SHAPES:
+        label = (b, s, t, h, kv, d, causal)
         g = torch.Generator(device="cuda").manual_seed(b * s + t + h + d)
         q, do = (torch.randn((b, s, h, d), generator=g, device="cuda") for _ in range(2))
         k, v = (torch.randn((b, t, kv, d), generator=g, device="cuda") for _ in range(2))
-        o = flash_attention(q, k, v, causal=causal)
-        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        o = flash_attention(q, k, v, causal=causal, lse=lse)
+        body = select_bwd_body(d)
+        before = dict(flash_attention_bwd.launches_by_body)
+        got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
         want = attention_bwd_ref(q, k, v, o, do, causal=causal)
         torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in flash_attention_bwd.launches_by_body.items() if c != before[n]}
+        if ran != {body: 2}:
+            fail(f"flash_attention_bwd at {label} ran bodies {ran}, expected {body}")
         rel = [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(got, want)]
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         if not all(math.isfinite(r) and r <= BWD_RTOL for r in rel):
-            fail(f"flash_attention_bwd != plain at {(b, s, t, h, kv, d, causal)}: max |diff| / max |ref| of "
+            fail(f"flash_attention_bwd != plain at {label}: max |diff| / max |ref| of "
                  f"dq, dk, dv {rel} (limit {BWD_RTOL})")
-        del got, want
+        if not all(bits_equal(x, y) for x, y in zip(got, again)):
+            fail(f"flash_attention_bwd at {label}: two calls on the same inputs differ")
+        del got, again, want
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
         qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
@@ -3529,19 +3764,32 @@ def check_attention_bwd(torch, rows) -> None:
         backend, names = sdpa_backend(lambda: sdpa_out.backward(dot, retain_graph=True))
         pairs = visible_pairs(s, t, causal) * b * h
         big = pairs * d > 1e10
-        row = timed_row(lambda: flash_attention_bwd(q, k, v, o, do, causal=causal),
+        needed = 10 * d * pairs
+        if body == "wgmma_f32":            # 3 TF32 products for each float32 one, as the forward's rows count
+            ops, ops_per_s = 3 * needed, TF32_OPS_PER_S
+            issued, issued_rate = bwd_issued_ops(b, s, t, h, d, causal), TF32_OPS_PER_S
+        else:
+            ops, ops_per_s = needed, F32_OPS_PER_S
+            issued, issued_rate = 14 * d * pairs, F32_OPS_PER_S
+        nbytes = 4 * 2 * (q.numel() + k.numel() + v.numel()) + 8 * q.numel() + 4 * lse.numel()
+        row = timed_row(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=causal),
                         lambda: attention_bwd_ref(q, k, v, o, do, causal=causal),
                         library=lambda: sdpa_out.backward(dot, retain_graph=True),
-                        n=3 if big else 10, inner=2 if big else 5, reps=3, shape=[b, s, t, h, kv, d],
-                        causal=causal, bytes=4 * 2 * (q.numel() + k.numel() + v.numel()) + 8 * q.numel(),
-                        ops=10 * d * pairs, issued_ops=16 * d * pairs, max_abs_err=err, rel_err=rel,
-                        sdpa_backend=backend, body="simt")
+                        n=3 if big else 10, inner=2 if big else 5, reps=3, ops_per_s=ops_per_s,
+                        shape=[b, s, t, h, kv, d], causal=causal, bytes=nbytes, ops=ops, needed_ops=needed,
+                        fma_bound_ms=max(nbytes / HBM_BYTES_PER_S, needed / F32_OPS_PER_S) * 1e3,
+                        issued_ops=issued, issued_ms=issued / issued_rate * 1e3,
+                        max_abs_err=err, rel_err=rel, sdpa_backend=backend, body=body)
         rows[("flash_attention_bwd", b, s, t, h, kv, d, causal)] = row
-        print(f"  flash_attention_bwd (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {'causal' if causal else 'full'}: "
-              f"max |diff| / max |ref| dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} (limit {BWD_RTOL}); "
-              + describe(row) + f"; {16 * d * pairs / row['ms'] / 1e9:.1f} TFLOP/s issued (16·d a pair); SDPA "
+        kind = "TF32" if body == "wgmma_f32" else "float32 FMA"
+        print(f"  flash_attention_bwd (B,S,T,H,KV,d)=({b},{s},{t},{h},{kv},{d}) {'causal' if causal else 'full'} "
+              f"[{body}]: max |diff| / max |ref| dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} (limit {BWD_RTOL}); "
+              f"two calls bit-equal; " + describe(row) + f"; float32-FMA bound {row['fma_bound_ms'] * 1e3:.1f} us; "
+              f"{issued:.4g} {kind} operations issued ({issued / pairs / d:.1f}·d a live pair; "
+              f"{row['issued_ms'] * 1e3:.1f} us at {issued_rate / 1e12:g} TFLOP/s, not a bound), "
+              f"{issued / row['ms'] / 1e9:.1f} TFLOP/s issued; SDPA "
               f"backward {backend} ({', '.join(n[:50] for n in names[:3])})")
-        del q, k, v, o, do, qt, kt, vt, sdpa_out, dot
+        del q, k, v, o, do, lse, qt, kt, vt, sdpa_out, dot
         torch.cuda.empty_cache()
 
 
@@ -3613,9 +3861,10 @@ def train_path(torch) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     shape = (b // k, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, "float32", True)
     want = {shape: cfg.num_layers * k * TRAIN["steps"]}
-    if fwd_shapes != want or bwd_shapes != want or flash_attention.launches_by_body["wgmma_f32"] != want[shape]:
+    if (fwd_shapes != want or bwd_shapes != want or flash_attention.launches_by_body["wgmma_f32"] != want[shape]
+            or flash_attention_bwd.launches_by_body["wgmma_f32"] != want[shape]):
         fail(f"train: B4 forward launches {fwd_shapes} ({flash_attention.launches_by_body}), backward "
-             f"{bwd_shapes}; expected {want} each, on \"wgmma_f32\"")
+             f"{bwd_shapes} ({flash_attention_bwd.launches_by_body}); expected {want} each, on \"wgmma_f32\"")
     if any(v for name, v in launches.items() if name not in ("flash_attention", "flash_attention_bwd")):
         fail(f"train: launches {launches}: only B4 and its backward may run")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and min(losses[1:]) < losses[0]):
@@ -3829,6 +4078,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device: {kind}; nvidia-smi: {smi}")
+    if sys.argv[1:2] == ["--loop-c16"]:
+        phase(f"ROADMAP C16: jamba's serve cell, {sys.argv[2]} repetitions of prefill, decode and teacher forcing:")
+        build.build(("ssd_scan",))
+        return 1 if c16_loop(torch, int(sys.argv[2])) else 0
 
     t0 = time.perf_counter()
     built = build.build()

@@ -3,17 +3,19 @@
 Each source is one shared library with a plain C interface, compiled by
 nvcc for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root of
 the checkout and loaded with ``ctypes``.  The library's file name carries
-a hash of its source and flags, so an edited source is never served from
-a stale build.  ``build`` starts one nvcc per source, all at once.
-A failed build raises; there is no fallback.  ``load`` is safe to call
-from several threads (the async runtime's workers): one builds, the
-others wait for it.
+a hash of its source, of the csrc/ headers it includes and of the flags,
+so an edited source or header is never served from a stale build.
+``build`` starts one nvcc per source, all at once.  A failed build
+raises; there is no fallback.  ``load`` is safe to call from several
+threads (the async runtime's workers): one builds, the others wait for
+it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources_of(name: str) -> list[Path]:
+    """``name``'s source and every header under csrc/ it includes, directly
+    or through another header (``#include "..."``), in the order found."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend(CSRC / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library's path, its name carrying a hash of the source, of the
+    headers it includes and of the flags."""
+    h = hashlib.sha1()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

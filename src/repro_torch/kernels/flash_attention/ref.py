@@ -27,16 +27,30 @@ def _repeated_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return k.float().repeat_interleave(group, dim=2), v.float().repeat_interleave(group, dim=2), group
 
 
-def _probs(q: torch.Tensor, kr: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """softmax(q·Kᵀ/√d) [B,H,S,T] in float32, masked by the top-left rule."""
+def _scores(q: torch.Tensor, kr: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """q·Kᵀ/√d [B,H,S,T] in float32, masked (NEG_INF) by the top-left rule."""
     s, t, d = q.shape[1], kr.shape[1], q.shape[3]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(d)
     if causal:
         rows = torch.arange(s, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]
         scores = torch.where(rows >= cols, scores, NEG_INF)
+    return scores
+
+
+def _probs(q: torch.Tensor, kr: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """softmax(q·Kᵀ/√d) [B,H,S,T] in float32, masked by the top-left rule."""
+    scores = _scores(q, kr, causal=causal)
     p = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
     return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores, [B,H,S] float32
+    (natural log): ``softmax(scores)[j] = exp(scores[j] − lse)``.  B4's
+    "wgmma_f32" body writes it in base 2, ``lse·log2(e)``."""
+    kr, _, _ = _repeated_kv(q, k, k)
+    return torch.logsumexp(_scores(q, kr, causal=causal), dim=-1)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -19,8 +19,8 @@ from _match_states import batch_case, frame_case
 from repro_torch.core.matcher import MatcherState, match_and_update
 from repro_torch.kernels._launch import bind
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd, select_bwd_body
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref, attention_ref
 from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched, match_update, match_update_batched
@@ -464,7 +464,7 @@ def test_flash_attention_entry_point_refuses_a_body_it_cannot_take(card):
         q = torch.zeros(1, 64, 2, d, dtype=dtype, device=card)
         out = torch.empty_like(q)
         rc = fn(fa_kernel.BODIES[body], fa_kernel.DTYPES[dtype], q.data_ptr(), q.data_ptr(),
-                q.data_ptr(), out.data_ptr(), 1, 64, 64, 2, 2, d, *q.stride()[:3], *q.stride()[:3],
+                q.data_ptr(), out.data_ptr(), None, 1, 64, 64, 2, 2, d, *q.stride()[:3], *q.stride()[:3],
                 *q.stride()[:3], 1, 1.0 / math.sqrt(d), stream)
         assert rc == 1
     torch.cuda.synchronize()
@@ -1288,23 +1288,85 @@ def _bwd_inputs(card, b, s, t, h, kv, d, seed):
     return q, k, v, do
 
 
+def _forward_with_lse(q, k, v, causal):
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return flash_attention(q, k, v, causal=causal, lse=lse), lse
+
+
 @pytest.mark.parametrize("b,s,t,h,kv,d,causal", [
     (1, 256, 256, 8, 2, 128, True), (2, 100, 100, 4, 4, 64, False), (2, 64, 150, 8, 8, 64, False),
     (1, 150, 64, 10, 2, 96, True), (1, 96, 96, 4, 4, 256, True), (1, 33, 33, 5, 1, 72, True),
-    (3, 1, 17, 2, 1, 8, False)])
+    (3, 1, 17, 2, 1, 8, False),
+    (2, 160, 96, 8, 2, 64, True),       # G = 4 at d = 64, S > T
+    (1, 130, 200, 6, 2, 256, False),    # G = 3 at d = 256 ("simt")
+    (1, 1100, 1100, 5, 1, 128, True),   # qwen2.5-32b's group of G = 5
+    (1, 4096, 4096, 5, 1, 128, True),   # and the train cell's walk: ~7,700 wgmmas a key of the first block
+])
 def test_flash_attention_bwd_kernel_equals_plain(card, b, s, t, h, kv, d, causal):
-    """dQ, dK, dV within 1e-4·max |ref| each; one launch counted a call."""
+    """dQ, dK, dV within 1e-4·max |ref| each, from the forward's lse2; one
+    launch counted a call, on the body ``select_bwd_body(d)``."""
     q, k, v, do = _bwd_inputs(card, b, s, t, h, kv, d, b * s + t + h + d)
-    o = flash_attention(q, k, v, causal=causal)
-    before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    o, lse = _forward_with_lse(q, k, v, causal)
+    body = select_bwd_body(d)
+    before = flash_attention_bwd.launches, flash_attention_bwd.launches_by_body[body]
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     want = attention_bwd_ref(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
+    assert (flash_attention_bwd.launches, flash_attention_bwd.launches_by_body[body]) == \
+        (before[0] + 1, before[1] + 1)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(x).all(), name
         err = float((x - y).abs().max())
         assert err <= 1e-4 * float(y.abs().max()), (name, err, float(y.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal", [(1, 300, 300, 10, 2, 128, True), (2, 90, 150, 4, 4, 64, False),
+                                                 (1, 64, 64, 4, 2, 256, True)])
+def test_flash_attention_bwd_twice_gives_the_same_bits(card, b, s, t, h, kv, d, causal):
+    """No atomics: two calls on the same inputs write the same bits."""
+    q, k, v, do = _bwd_inputs(card, b, s, t, h, kv, d, 5 + d)
+    o, lse = _forward_with_lse(q, k, v, causal)
+    first = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    second = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    for x, y in zip(first, second):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal", [(1, 300, 300, 10, 2, 128, True), (2, 90, 150, 4, 4, 64, False),
+                                                 (2, 150, 90, 4, 2, 64, True), (1, 100, 100, 4, 4, 256, True),
+                                                 (1, 70, 70, 2, 2, 72, False)])
+def test_the_forward_s_lse_is_the_plain_one_and_leaves_its_output_bits(card, b, s, t, h, kv, d, causal):
+    """"wgmma_f32"'s lse2, times ln 2, is ``attention_lse_ref`` within 1e-5
+    of its largest magnitude, and asking for it changes no bit of the
+    output."""
+    q, k, v, _ = _bwd_inputs(card, b, s, t, h, kv, d, 11 + d)
+    o, lse = _forward_with_lse(q, k, v, causal)
+    assert torch.equal(_bits(o), _bits(flash_attention(q, k, v, causal=causal)))
+    want = attention_lse_ref(q, k, causal=causal)
+    assert float((lse * math.log(2.0) - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_the_lse_and_the_backward_refuse_what_they_cannot_take(card):
+    """lse only beside the "wgmma_f32" body; the backward's C side refuses a
+    head dim or a head grouping it does not take (cudaErrorInvalidValue, no
+    launch), and reports the "wgmma_f32" tiling only for the widths that
+    body runs."""
+    q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="wgmma_f32"):
+        flash_attention(q, q, q, lse=torch.empty(1, 2, 64, device=card))
+    fn = bind("flash_attention_bwd", "flash_attention_bwd", fa_kernel._BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for d, kv in ((12, 2), (264, 2), (64, 3)):
+        x = torch.zeros(1, 64, 2, 264, device=card)
+        lse = torch.zeros(1, 2, 64, device=card)
+        rc = fn(*(x.data_ptr(),) * 5, lse.data_ptr(), *(x.data_ptr(),) * 3,
+                lse.data_ptr(), 1, 64, 64, 2, kv, d, 1, 1.0 / math.sqrt(d), stream)
+        assert rc == 1
+    torch.cuda.synchronize()
+    assert [fa_kernel.bwd_tiles(d)["width"] for d in (8, 64, 72, 128)] == [32, 64, 96, 128]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        fa_kernel.bwd_tiles(136)
 
 
 def test_no_gradient_is_lost_through_b4(card):
