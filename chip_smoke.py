@@ -44,11 +44,17 @@ bf16 tensor-core ("wgmma") body; last, training: qwen2.5-32b at full width
 cut to 2 layers, 5 AdamW steps of 4 microbatches of 4,096 tokens (the loss
 falling, B4 and its hand-written backward once a layer and a microbatch,
 every gradient finite, the attention projections' nonzero, one step
-profiled) and 2 with the 8-bit moments; the reduced dense, moe, vlm and
-audio models trained on the card against the CPU (ssm and hybrid raise:
-B6 has no backward yet); the train launcher on the card with a checkpoint
-and a resume.  B4's backward is checked against its plain version, beside
-SDPA's backward, in the kernel phase.  The multi path's CPU checks are
+profiled) and 2 with the 8-bit moments; mamba2-370m whole (5 steps of 4 x
+8,192 tokens, B6 and its hand-written backward once a layer and a
+microbatch), jamba-1.5-large at full width cut to 1 of 72 layers (3 steps
+of 2 x 2,048) and granite-moe-1b-a400m whole (3 steps of 4 x 4,096), each
+with the same checks and a profiled step; the reduced models of every
+family trained on the card against the CPU; the train launcher on the card
+with a checkpoint and a resume (the four train cells, ``TRAIN_CELLS``, run
+by one routine, ``train_cell``).  B4's and B6's backwards are checked
+against their plain versions in the kernel phase (B4's beside SDPA's
+backward; B6's from the forward's kept incoming states, which are held to
+the plain forward's).  The multi path's CPU checks are
 pinned as digests (MULTI_PINNED, like the mesh cells'), and so are
 the main path's and the baselines' (SCAN_PINNED).  The float32 prefills' attention, gemma's
 heads of 256 included, runs on B4's 3xTF32 tensor-core body ("wgmma_f32").
@@ -365,6 +371,16 @@ B6_SHAPES = (
 )
 # B6's five launches, by the word between "ssd_scan_" and "_kernel" in their names
 B6_PHASES = ("acs", "cb", "chunk_state", "state_pass", "chunk_scan")
+# B6's backward (csrc/ssd_scan_bwd.cu) against its plain version (ssd_bwd_ref) at B6_SHAPES' (B, S, H, P, N,
+# chunk, a_log, dt): a microbatch of the mamba2 train cell, the forward's serve row and weak batch-1 row, jamba's
+# 256 heads, a = -8, and a small odd width (P 12, N 20, a chunk of 200: no whole tile); each of dx, ddt, dB, dC and
+# da within SSD_BWD_RTOL·max |ref| (both float32, summed in other orders; da in float64 over each term's span of dt)
+B6_BWD_TRAIN = (1, 8192, 32, 64, 128, 1024, 1.0, "softplus")
+B6_BWD_SHAPES = (B6_BWD_TRAIN, B6_SHAPES[0], B6_SHAPES[6], B6_HYBRID, B6_SHAPES[4],
+                 (1, 400, 3, 12, 20, 200, None, "softplus"))
+SSD_BWD_RTOL = 1e-4
+# the backward's launches, by the word between "ssd_bwd_" and "_kernel" in their names (dcb_sum only where H > 32)
+B6_BWD_PHASES = ("acs", "prep", "cb", "chunk_grad", "state_pass", "pairs", "dcb_sum", "dxdt", "dacs", "da", "dcdb")
 
 
 # training.  B4's backward (csrc/flash_attention_bwd.cu) against its plain version at
@@ -375,15 +391,24 @@ BWD_TRAIN = (1, 4096, 4096, 40, 8, 128, True)
 BWD_SHAPES = (BWD_TRAIN, (16, 1500, 1500, 8, 8, 64, False), (16, 384, 1500, 8, 8, 64, False),
               (1, 2048, 2048, 16, 16, 256, True))
 BWD_RTOL = 1e-4
-# the train cell: qwen2.5-32b (the reference train launcher's default arch) at full width, its 64
-# layers cut to 2 (the whole model does not fit one card with its AdamW state), float32 (the
-# launcher's), the train_4k sequence, 4 microbatches of 1 a step, lr 1e-2 on one fixed batch, then
-# 2 steps with the 8-bit moments
-TRAIN = dict(arch="qwen2.5-32b", layers=2, batch=4, seq=4096, microbatches=4, lr=1e-2, steps=5, steps_8bit=2)
-# reduced training, card against CPU: the families whose kernels have a backward (dense, moe, vlm,
-# audio: B4 only); ssm and hybrid need B6's (ROADMAP A13.6b) and must raise on the card
-TRAIN_REDUCED = ("qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base")
-TRAIN_RAISES = ("mamba2-370m", "jamba-1.5-large-398b")
+# the train cells, float32, lr 1e-2 on one fixed batch, no remat (one routine, ``train_cell``):
+# qwen2.5-32b (the reference train launcher's default arch) at full width, its 64 layers cut to 2 (the whole
+# model does not fit one card with its AdamW state), the train_4k sequence, 4 microbatches of 1 a step, every B4
+# launch forward and backward on "wgmma_f32" (``body``), then 2 steps with the 8-bit moments (``steps_8bit``);
+# mamba2-370m whole (48 layers, 4 microbatches of 1 x 8,192, 5 steps: B6 and its backward 48 x 4 a step),
+# jamba-1.5-large at full width cut to 1 of 72 layers (its Mamba-2 layer of 256 heads of 64 and the dense
+# SwiGLU MLP of 24,576; 2 microbatches of 1 x 2,048, the serve cell's prompt; 3 steps) and
+# granite-moe-1b-a400m whole (4 microbatches of 1 x 4,096, 3 steps: B4 and its backward 24 x 4 a step)
+TRAIN_CELLS = {
+    "dense": dict(arch="qwen2.5-32b", layers=2, batch=4, seq=4096, microbatches=4, lr=1e-2, steps=5,
+                  body="wgmma_f32", steps_8bit=2),
+    "ssm": dict(arch="mamba2-370m", layers=None, batch=4, seq=8192, microbatches=4, lr=1e-2, steps=5),
+    "hybrid": dict(arch="jamba-1.5-large-398b", layers=1, batch=2, seq=2048, microbatches=2, lr=1e-2, steps=3),
+    "moe": dict(arch="granite-moe-1b-a400m", layers=None, batch=4, seq=4096, microbatches=4, lr=1e-2, steps=3),
+}
+# reduced training, card against CPU: every family (B4's and B6's backwards on the card)
+TRAIN_REDUCED = ("qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base", "mamba2-370m",
+                 "jamba-1.5-large-398b")
 # the train launcher on the card, its reduced config, checkpoints at steps 5 and 10
 LAUNCH_ARGV = ["--reduced", "--steps", "12", "--ckpt-every", "5", "--batch", "8", "--seq", "64"]
 
@@ -676,6 +701,20 @@ def check_b6_build(info: dict) -> None:
                   f"spill loads {e['spill_loads']} B")
             if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
                 fail(f"B6's {phase} kernel spills or went unreported: {e}")
+
+
+def check_b6_bwd_build(info: dict) -> None:
+    """Each of B6's backward's kernels as built: ptxas reports it, without spills."""
+    entries = [e for e in ptxas_entries(info["log"]) if "ssd_bwd_" in e["name"]]
+    for phase in B6_BWD_PHASES:
+        found = [e for e in entries if f"ssd_bwd_{phase}_kernel" in e["name"]]
+        if not found:
+            fail(f"ptxas reported no kernel of B6's backward's {phase} phase")
+        for e in found:
+            print(f"  B6 backward {phase}: {e['registers']} registers, spill stores {e['spill_stores']} B, "
+                  f"spill loads {e['spill_loads']} B")
+            if e["spill_stores"] or e["spill_loads"] or e["registers"] is None:
+                fail(f"B6's backward's {phase} kernel spills or went unreported: {e}")
 
 
 # ----------------------------------------------------------------- kernels
@@ -2679,20 +2718,18 @@ def ssd_kernel_ops(b, s, h, p, n, q, tile=64) -> int:
     return cb + state + acs_and_pass + scan
 
 
-def ssd_phase_us(fn, *, n: int = 3) -> dict:
-    """Device µs per call of each of B6's five launches (torch.profiler)."""
+def ssd_phase_us(fn, *, n: int = 3, prefix: str = "ssd_scan", phases=B6_PHASES) -> dict:
+    """Device µs per call of each launch of B6 (or, with ``prefix``
+    "ssd_bwd" and ``phases`` B6_BWD_PHASES, of its backward), by the word
+    between the prefix and "_kernel" in the kernels' names (torch.profiler,
+    from a whole capture: :func:`witnessed_events`; all 0 where none was)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = dict.fromkeys(B6_PHASES, 0.0)
-    for e in device_events(prof):
-        m = re.search(r"ssd_scan_(\w+?)_kernel", e.name)
+    us = dict.fromkeys(phases, 0.0)
+    for e in witnessed_events(lambda: [fn() for _ in range(n)], tries=3) or []:
+        m = re.search(prefix + r"_(\w+?)_kernel", e.name)
         if m and m.group(1) in us:
             us[m.group(1)] += e.time_range.elapsed_us() / n
     return us
@@ -2753,19 +2790,152 @@ def check_ssd_kernel(torch, rows) -> None:
         torch.cuda.empty_cache()
 
 
-def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
+def ssd_bwd_work(b, s, h, p, n, q) -> tuple[int, int]:
+    """(bytes, operations) B6's backward needs: x, dt, B, C, a, dy, d(final
+    state) and the forward's incoming states read once, dx, ddt, dB, dC and
+    da written once; per chunk C·Bᵀ, dCB·B and dCBᵀ·C on the causal half
+    (2N a pair each); per head and chunk dy·xdt and (CB∘L)ᵀ·dy on the
+    causal half (2P a pair each) with the decay, dCB, M and its span (8 a
+    pair), the two products of Q·P·N that reach dx and dB from the state's
+    gradient (dS·B, and the head's share of dB, xdt·dS) and 6 a (position,
+    column) for dx, ddt's direct term and the scalings; and per head in
+    every chunk after the first (the first's incoming state is zero, and
+    nothing needs the gradient into it) the two products with the incoming
+    state (G, and the head's share of dC, exp(acs_t)·dy_t·h_in), the inter
+    term of d(acs) from that share (Σ_n C_tn·share_tn, 2N a position) and
+    the decay's gradient (2PN).  The forward's inter product h_in·C is not
+    needed: the dC share gives the inter term of d(acs)."""
+    nc, pairs = s // q, q * (q + 1) // 2
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + b * h * p * n + b * nc * h * p * n + 2 * h)
+    ops = (b * nc * (3 * pairs * 2 * n + h * (pairs * (4 * p + 8) + 4 * q * p * n + 6 * q * p))
+           + b * (nc - 1) * h * (4 * q * p * n + 2 * q * n + 2 * p * n))
+    return nbytes, ops
+
+
+def ssd_bwd_kernel_ops(b, s, h, p, n, q, tile=64) -> int:
+    """The operations B6's backward's launches issue (a multiply-add counts
+    2; an exp, a subtraction or a multiply 1), as the source tiles the work:
+    - cb and chunk_grad as the forward's cb and chunk_state (``ssd_kernel_ops``);
+    - pairs: per (b, chunk, tile pair on or below the diagonal, head) the
+      64 x 64 x P product, 11 a tile element (the decay's exp and scalings,
+      dCB, M, its span) and the row and column sums;
+    - dxdt: per (b, chunk, h, column tile) the state's products (h_in·C after
+      the first chunk, dS·B), 64 x 64 x N each with P padded to 64, and per
+      row tile at or below it two stages of 32 positions, 64·32 decays (3
+      each) and 64 x 64 x 32 multiply-adds, as deep as the chunk reaches;
+    - dcdb: per (b, chunk, 64-row tile, 64 state columns) and each of dC
+      and dB the heads' 64 x 64 x P products (dC's skipped in the first
+      chunk) and 64 x 64 x 64 a dCB tile it walks (r + 1 for dC, nt - r for
+      dB);
+    - acs, prep, state_pass, dacs and da: a few operations a position or a
+      state element."""
+    nc, nt = s // q, -(-q // tile)
+    pairs = nt * (nt + 1) // 2
+    groups = -(-h // 32)
+    cb = b * nc * pairs * tile * tile * 2 * n
+    steps = sum(-(-min(32, q - k0) // 4) * 4 for k0 in range(0, q, 32))
+    chunk_grad = b * nc * h * -(-n // 128) * 128 * (2 * 64 + 8) * steps
+    pair_ops = b * nc * pairs * h * tile * tile * (2 * p + 11) + (groups - 1) * b * nc * pairs * tile * tile
+    stages = [sum(1 for jb in range(0, tile, 32) if tt * tile + jb < q) for tt in range(nt)]
+    intra = [sum(stages[tt] * (3 * tile * 32 + 2 * tile * tile * 32) for tt in range(st, nt)) for st in range(nt)]
+    dxdt = sum(b * h * ((1 if c else 0) + 1) * nt * tile * tile * 2 * n for c in range(nc)) + b * nc * h * sum(intra)
+    heads = b * h * -(-n // tile) * nt * tile * tile * 2 * p * (2 * nc - 1)
+    walked = sum((r + 1) + (nt - r) for r in range(nt))
+    dcdb = heads + b * nc * -(-n // tile) * walked * tile * tile * 2 * tile
+    small = b * nc * h * (3 * q + 2 * nt * tile + 12 * q) + b * h * n * p * nc * 4
+    return cb + chunk_grad + pair_ops + dxdt + dcdb + small
+
+
+def check_ssd_bwd_kernel(torch, rows) -> None:
+    """B6's backward (``ssd_scan_bwd``, from the forward's incoming states)
+    against its plain version (``ssd_bwd_ref``) on the card at
+    ``B6_BWD_SHAPES``: each of dx, ddt, dB, dC and da within
+    ``SSD_BWD_RTOL``·max |ref| and finite, a second call the same bits, one
+    count a call; the forward's y and final state the same bits with and
+    without the incoming states kept (a serve keeps none), and the kept
+    states within SSD_ATOL + SSD_RTOL·|ref| of ``ssd_ref``'s.  Timed beside the
+    plain version and by launch; no PyTorch call computes this gradient, so
+    there is no library time.  The bound: ``ssd_bwd_work`` at 67 TFLOP/s."""
+    from repro_torch.kernels.ssd_scan.kernel import bwd_smem_bytes, ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
+
+    for shape in B6_BWD_SHAPES:
+        b, s, h, p, n, chunk, a_log, dt_kind = shape
+        x, dt, bm, cm, a = ssd_inputs(torch, b, s, h, p, n, a_log, dt_kind, seed=b * s + h + p + n + 1)
+        g = torch.Generator(device="cuda").manual_seed(b + s + h)
+        dy = torch.randn((b, s, h, p), generator=g, device="cuda")
+        dh = torch.randn((b, h, p, n), generator=g, device="cuda")
+        q = min(chunk, s)
+        y0, f0 = ssd_scan(x, dt, bm, cm, a, chunk=chunk)
+        h_in = torch.empty((b, s // q, h, n, p), device="cuda")
+        y1, f1 = ssd_scan(x, dt, bm, cm, a, chunk=chunk, h_in=h_in)
+        before = ssd_scan_bwd.launches
+        got = ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk)
+        again = ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk)
+        want = ssd_bwd_ref(x, dt, bm, cm, a, dy, dh, h_in.transpose(-1, -2), chunk=chunk)
+        torch.cuda.synchronize()
+        if not (bits_equal(y0, y1) and bits_equal(f0, f1)):
+            fail(f"ssd_scan at {shape}: y or the final state changed bits with the incoming states kept")
+        # the kept states against the plain forward's, element by element as check_ssd_kernel holds the final one
+        ref_h = ssd_ref(x, dt, bm, cm, a, chunk=chunk, states=True)[2]
+        h_worst = float(((h_in.transpose(-1, -2) - ref_h).abs() / (SSD_ATOL + SSD_RTOL * ref_h.abs())).max())
+        if not h_worst <= 1.0:
+            fail(f"ssd_scan at {shape}: the kept incoming states differ from the plain forward's: largest "
+                 f"|diff| / limit {h_worst} (limit {SSD_ATOL:g} + {SSD_RTOL:g}·|ref|)")
+        del ref_h
+        if ssd_scan_bwd.launches != before + 2:
+            fail(f"ssd_scan_bwd at {shape}: {ssd_scan_bwd.launches - before} launches counted for 2 calls")
+        rel = [float((u - v).abs().max()) / float(v.abs().max()) for u, v in zip(got, want)]
+        err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        if not all(math.isfinite(r) and r <= SSD_BWD_RTOL for r in rel):
+            fail(f"ssd_scan_bwd != plain at {shape}: max |diff| / max |ref| of dx, ddt, dB, dC, da {rel} "
+                 f"(limit {SSD_BWD_RTOL})")
+        if not all(bits_equal(u, v) for u, v in zip(got, again)):
+            fail(f"ssd_scan_bwd at {shape}: two calls on the same inputs differ")
+        del y0, y1, f0, f1, got, again, want
+        torch.cuda.empty_cache()
+        nbytes, ops = ssd_bwd_work(b, s, h, p, n, q)
+        own = ssd_bwd_kernel_ops(b, s, h, p, n, q)
+        big = ops > 1e10
+        row = timed_row(lambda: ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk),
+                        lambda: ssd_bwd_ref(x, dt, bm, cm, a, dy, dh, h_in.transpose(-1, -2), chunk=chunk),
+                        n=3 if big else 10, inner=2 if big else 5, reps=3, shape=[b, s, h, p, n, q], a_log=a_log,
+                        dt=dt_kind, bytes=nbytes, ops=ops, kernel_ops=own, max_abs_err=err, rel_err=rel,
+                        h_in_diff_over_limit=h_worst, smem_bytes=bwd_smem_bytes())
+        row["phases_us"] = ssd_phase_us(lambda: ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk),
+                                        prefix="ssd_bwd", phases=B6_BWD_PHASES)
+        rows[("ssd_scan_bwd", *shape)] = row
+        print(f"  ssd_scan_bwd (B,S,H,P,N,Q)=({b},{s},{h},{p},{n},{q}), a_log {a_log}, dt {dt_kind}: max |diff| / "
+              f"max |ref| dx {rel[0]:.3g}, ddt {rel[1]:.3g}, dB {rel[2]:.3g}, dC {rel[3]:.3g}, da {rel[4]:.3g} (limit "
+              f"{SSD_BWD_RTOL}); two calls bit-equal; y bit-equal with the states kept, which hold the plain forward's "
+              f"(largest |diff| / limit {h_worst:.3g}); {ops:.4g} operations needed "
+              f"({ops / ssd_work(b, s, h, p, n, q)[1]:.2f}x the forward's), {own:.4g} issued "
+              f"({own / row['ms'] / 1e9:.1f} TFLOP/s, at most {row['smem_bytes']} bytes of dynamic shared memory a "
+              f"block); " + describe(row))
+        print("    by launch, device us: " + ", ".join(f"{k} {v:.1f}" for k, v in row["phases_us"].items()))
+        del x, dt, bm, cm, a, dy, dh, h_in
+        torch.cuda.empty_cache()
+
+
+def device_share(prof, range_name: str, kernel_key: str | None, keys: tuple = ()) -> dict:
     """Inside the host span of the ``range_name`` range: the device's busy
     time and idle share, the busy time of kernels whose name holds
     ``kernel_key`` (none when None) and of the cuBLAS products (names
-    holding "gemm", "gemv" or "nvjet"), and the runtime calls that launch or wait."""
+    holding "gemm", "gemv" or "nvjet"), the runtime calls that launch or
+    wait, and under "by_key" the busy ms of kernels whose name holds each
+    of ``keys`` (one pass over the profile for all of them)."""
     from torch.autograd import DeviceType
 
     span = [e for e in prof.events() if e.name == range_name and e.device_type == DeviceType.CPU][0]
     lo, hi = span.time_range.start, span.time_range.end
     busy = key = gemm = 0.0
+    by_key = dict.fromkeys(keys, 0.0)
     for e in device_events(prof):
         overlap = max(0, min(e.time_range.end, hi) - max(e.time_range.start, lo))
         busy += overlap
+        for k in keys:
+            if k in e.name:
+                by_key[k] += overlap / 1e3
         if kernel_key is not None and kernel_key in e.name:
             key += overlap
         elif "gemm" in e.name or "gemv" in e.name or "nvjet" in e.name:
@@ -2777,7 +2947,7 @@ def device_share(prof, range_name: str, kernel_key: str | None) -> dict:
                           "cudaMemcpyAsync")}
     return {"span_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3, "idle": 1 - busy / (hi - lo),
             "kernel_ms": key / 1e3, "kernel_share": key / busy if busy else 0.0,
-            "gemm_ms": gemm / 1e3, "calls": calls}
+            "gemm_ms": gemm / 1e3, "calls": calls, "by_key": by_key}
 
 
 def check_prefill_body(label: str, cell: dict, by_body: dict, launches: int) -> None:
@@ -3793,9 +3963,10 @@ def check_attention_bwd(torch, rows) -> None:
         torch.cuda.empty_cache()
 
 
-def train_config(reduced_arch: str | None = None):
-    """The train cell's config (``TRAIN``: full width, cut in depth) or a
-    reduced arch's (``scale_down``'s) and their RunConfig."""
+def train_config(family: str | None = None, reduced_arch: str | None = None):
+    """``TRAIN_CELLS[family]``'s config (full width, cut in depth where the
+    cell gives ``layers``) or a reduced arch's (``scale_down``'s), and
+    their RunConfig."""
     import dataclasses
 
     from repro_torch.configs import ARCHS, RunConfig, scale_down
@@ -3803,170 +3974,207 @@ def train_config(reduced_arch: str | None = None):
     if reduced_arch is not None:
         return scale_down(ARCHS[reduced_arch]), RunConfig(param_dtype="float32", remat=True, microbatches=2,
                                                           learning_rate=1e-2)
-    cfg = dataclasses.replace(ARCHS[TRAIN["arch"]], num_layers=TRAIN["layers"])
-    return cfg, RunConfig(param_dtype="float32", remat=False, microbatches=TRAIN["microbatches"],
-                          learning_rate=TRAIN["lr"])
+    cell = TRAIN_CELLS[family]
+    cfg = ARCHS[cell["arch"]]
+    if cell["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+    return cfg, RunConfig(param_dtype="float32", remat=False, microbatches=cell["microbatches"],
+                          learning_rate=cell["lr"])
 
 
-def train_path(torch) -> tuple[dict, dict]:
-    """qwen2.5-32b at full width cut to ``TRAIN["layers"]`` layers, float32:
-    ``TRAIN["steps"]`` AdamW steps of ``TRAIN["microbatches"]`` microbatches
-    on one fixed batch (``DeterministicTokenPipeline.batch_at(0)``), the
-    loss falling; B4's forward and backward launched once a layer and a
-    microbatch, at the cell's shape; every leaf's gradient finite and the
-    attention projections' nonzero; one step profiled (idle share, cuBLAS,
-    B4's forward and backward); then ``TRAIN["steps_8bit"]`` steps with the
-    8-bit moments.  Returns (launches of the steps, metrics)."""
-    import statistics as st
-
+def profiled_step(torch, step, state, batch, label: str) -> tuple:
+    """One more train step under torch.profiler, inside a "train.step"
+    range, taken again (three tries) where the capture kept no device
+    activity in that range → (state, the profile)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.data.pipeline import DeterministicTokenPipeline, TrainBatchSpec
-    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
-    from repro_torch.models.transformer import init_params
-    from repro_torch.train.optimizer import state_bytes
-    from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
-
-    cuda = torch.device("cuda")
-    cfg, run = train_config()
-    b, seq, k = TRAIN["batch"], TRAIN["seq"], TRAIN["microbatches"]
-    tokens = b * seq
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, 0, torch.float32, cuda)
-    n_params = sum(p.numel() for p in params.parameters())
-    gemm_flops = 6.0 * tokens * sum(p.numel() for p in params.parameters() if p.dim() == 2)
-    state = init_train_state(params, run)
-    batch = DeterministicTokenPipeline(TrainBatchSpec(b, seq, cfg.vocab), seed=0, device=cuda).batch_at(0)
-    step = build_train_step(cfg, run)
-    torch.cuda.synchronize()
-    print(f"  {TRAIN['arch']} cut to {cfg.num_layers} of 64 layers: {n_params:,} parameters "
-          f"({4 * n_params / 1e9:.2f} GB float32), moments {state_bytes(state.opt) / 1e9:.2f} GB; set-up "
-          f"{time.perf_counter() - t0:.1f} s; {k} microbatches of {b // k} x {seq} tokens a step")
-    reset_launches()
-    losses, step_s = [], []
-    for i in range(TRAIN["steps"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        print(f"    step {i}: loss {losses[-1]:.4f}, grad norm {float(m['grad_norm']):.4f}, lr {m['lr']:.3g}; "
-              f"{step_s[-1] * 1e3:.1f} ms")
-    launches = read_launches()
-    fwd_shapes = dict(flash_attention.launches_by_shape)
-    bwd_shapes = dict(flash_attention_bwd.launches_by_shape)
-    peak = torch.cuda.max_memory_allocated()
-    shape = (b // k, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, "float32", True)
-    want = {shape: cfg.num_layers * k * TRAIN["steps"]}
-    if (fwd_shapes != want or bwd_shapes != want or flash_attention.launches_by_body["wgmma_f32"] != want[shape]
-            or flash_attention_bwd.launches_by_body["wgmma_f32"] != want[shape]):
-        fail(f"train: B4 forward launches {fwd_shapes} ({flash_attention.launches_by_body}), backward "
-             f"{bwd_shapes} ({flash_attention_bwd.launches_by_body}); expected {want} each, on \"wgmma_f32\"")
-    if any(v for name, v in launches.items() if name not in ("flash_attention", "flash_attention_bwd")):
-        fail(f"train: launches {launches}: only B4 and its backward may run")
-    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and min(losses[1:]) < losses[0]):
-        fail(f"train: the loss did not fall over {TRAIN['steps']} steps: {losses}")
-    bad = [n for n, p in state.params.named_parameters() if not bool(torch.isfinite(p).all())]
-    if bad:
-        fail(f"train: non-finite parameters {bad}")
-
-    # every leaf's gradient on one microbatch: finite, the attention projections' nonzero
-    mb = {key: x[: b // k] for key, x in batch.items()}
-    _, grads = microbatch_grad(state.params, mb, cfg, run, moe_groups=1)
-    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
-    zero = [n for n, g in grads.items() if n.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv")
-            and not float(g.abs().max()) > 0]
-    n_attn = sum(n.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv") for n in grads)
-    if bad or zero or n_attn != 6 * cfg.num_layers:
-        fail(f"train: gradients non-finite {bad}, attention projections zero {zero} ({n_attn} of them)")
-    print(f"  gradients: {len(grads)} leaves finite; the {n_attn} attention projections' (wq, wk, wv, bq, bk, bv) "
-          f"nonzero, max |g| {min(float(grads[n].abs().max()) for n in grads if n.split('.')[-1] in ('wq', 'bq')):.3g}"
-          f" (least of wq, bq)")
-    del grads
 
     for attempt in range(3):
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         with prof:
             time.sleep(CAPTURE_PAD_S)
             with record_function("train.step"):
-                state, m = step(state, batch)
+                state, _ = step(state, batch)
                 torch.cuda.synchronize()
             time.sleep(CAPTURE_PAD_S)
-        bwd = device_share(prof, "train.step", "flash_attention_bwd")
-        both = device_share(prof, "train.step", "flash_attention")
-        if bwd["busy_ms"] > 0:
-            break
+        if device_share(prof, "train.step", None)["busy_ms"] > 0:
+            return state, prof
         print(f"  profile {attempt + 1} kept no device activity: taken again")
-    else:
-        fail("train: three profiles kept no device activity")
-    fwd_ms = both["kernel_ms"] - bwd["kernel_ms"]
-    step_ms = st.median(step_s[1:]) * 1e3
-    print(f"  {TRAIN['steps']} steps: losses {[round(x, 4) for x in losses]}; a step {step_ms:.1f} ms (median of "
-          f"steps 1..{TRAIN['steps'] - 1}; step 0 {step_s[0] * 1e3:.1f}) = {tokens / step_ms * 1e3:.1f} tokens/s; "
-          f"peak {peak / 1e9:.2f} GB; B4 forward and backward {want[shape] // TRAIN['steps']} a step each at {shape}")
-    print(f"profile: a train step span {bwd['span_ms']:.1f} ms, device busy {bwd['busy_ms']:.1f} ms (idle "
-          f"{100 * bwd['idle']:.1f}%); cuBLAS products {bwd['gemm_ms']:.1f} ms = "
-          f"{100 * bwd['gemm_ms'] / bwd['busy_ms']:.1f}% ({gemm_flops:.4g} flops, "
-          f"{gemm_flops / bwd['gemm_ms'] / 1e9:.1f} TFLOP/s); B4's backward {bwd['kernel_ms']:.1f} ms = "
-          f"{100 * bwd['kernel_share']:.1f}%, its forward {fwd_ms:.1f} ms = {100 * fwd_ms / bwd['busy_ms']:.1f}%; "
-          f"the rest {bwd['busy_ms'] - bwd['gemm_ms'] - bwd['kernel_ms'] - fwd_ms:.1f} ms")
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
-    del state, params, prof, m
-    torch.cuda.empty_cache()
+    fail(f"{label}: three profiles kept no device activity")
 
-    # the 8-bit moments: fresh weights, TRAIN["steps_8bit"] steps
+
+def train_cell(torch, family: str) -> tuple[dict, dict]:
+    """``TRAIN_CELLS[family]`` on the card: the arch at full width (cut to
+    ``layers`` where the cell gives it), float32, ``steps`` AdamW steps of
+    ``microbatches`` microbatches on one fixed batch
+    (``DeterministicTokenPipeline.batch_at(0)``), the loss falling; B6 and
+    its backward launched once a Mamba-2 layer and a microbatch, B4 and its
+    backward once an attention layer and a microbatch at the cell's shape
+    (on the cell's ``body`` where it names one), nothing else; every leaf's
+    gradient on one microbatch of the fresh weights finite, the Mamba-2
+    layers' a_log and dt_bias and the attention projections' (wq, wk, wv
+    and their biases where the arch has them) nonzero; one step profiled
+    (idle share, cuBLAS, B6's forward and backward, B4's forward and
+    backward); then, where the cell gives ``steps_8bit``, that many steps
+    with the 8-bit moments from fresh weights, the loss falling and step
+    0's that of the float32 run.  Returns (launches of the float32 steps,
+    metrics)."""
     import dataclasses
+    import statistics as st
 
-    run8 = dataclasses.replace(run, adam_8bit=True)
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DeterministicTokenPipeline, TrainBatchSpec
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import state_bytes
+    from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
+
+    cell = TRAIN_CELLS[family]
+    cuda = torch.device("cuda")
+    cfg, run = train_config(family)
+    b, seq, k, steps = cell["batch"], cell["seq"], cell["microbatches"], cell["steps"]
+    tokens = b * seq
+    attn, ssm, moe = layer_kinds(cfg)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(init_params(cfg, 0, torch.float32, cuda), run8)
-    step8 = build_train_step(cfg, run8)
-    losses8, s8 = [], []
-    for _ in range(TRAIN["steps_8bit"]):
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, cuda)
+    n_params = sum(p.numel() for p in params.parameters())
+    # the products' flops where every weight is a matrix (an MoE's experts are not: None)
+    gemm_flops = None if moe else 6.0 * tokens * sum(p.numel() for p in params.parameters() if p.dim() == 2)
+    state = init_train_state(params, run)
+    batch = DeterministicTokenPipeline(TrainBatchSpec(b, seq, cfg.vocab), seed=0, device=cuda).batch_at(0)
+    step = build_train_step(cfg, run)
+    torch.cuda.synchronize()
+    depth = (f"cut to {cfg.num_layers} of {ARCHS[cell['arch']].num_layers} layers" if cell["layers"]
+             else f"{cfg.num_layers} layers")
+    print(f"  {cell['arch']} {depth} ({attn} attention, {ssm} Mamba-2): {n_params:,} parameters "
+          f"({4 * n_params / 1e9:.2f} GB float32), moments {state_bytes(state.opt) / 1e9:.2f} GB; set-up "
+          f"{time.perf_counter() - t0:.1f} s; {k} microbatches of {b // k} x {seq} tokens a step")
+    # every leaf's gradient on one microbatch of the fresh weights: finite; the SSD's and the attention's own
+    # leaves nonzero
+    mb = {key: x[: b // k] for key, x in batch.items()}
+    _, grads = microbatch_grad(state.params, mb, cfg, run, moe_groups=1)
+    bad = [n_ for n_, g in grads.items() if not bool(torch.isfinite(g).all())]
+    watched = [n_ for n_ in grads if n_.split(".")[-1] in ("a_log", "dt_bias", "wq", "wk", "wv", "bq", "bk", "bv")]
+    zero = [n_ for n_ in watched if not float(grads[n_].abs().max()) > 0]
+    core = [n_ for n_ in watched if n_.split(".")[-1] in ("a_log", "dt_bias", "wq", "wk", "wv")]
+    if bad or zero or len(core) != 2 * ssm + 3 * attn:
+        fail(f"train {family}: gradients non-finite {bad}, zero {zero} ({len(core)} a_log, dt_bias, wq, wk, wv "
+             f"leaves for {ssm} Mamba-2 and {attn} attention layers)")
+    least = {leaf: min(float(grads[n_].abs().max()) for n_ in watched if n_.endswith("." + leaf))
+             for leaf in ("a_log", "dt_bias", "wq", "bq") if any(n_.endswith("." + leaf) for n_ in watched)}
+    print(f"  gradients: {len(grads)} leaves finite; the {len(watched)} a_log, dt_bias, wq, wk, wv, bq, bk, bv "
+          f"leaves nonzero (least max |g|: {', '.join(f'{n_} {v:.3g}' for n_, v in least.items())})")
+    del grads
+
+    reset_launches()
+    losses, step_s = [], []
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step8(state, batch)
-        losses8.append(float(m["loss"]))
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
         torch.cuda.synchronize()
-        s8.append(time.perf_counter() - t0)
-    peak8, bytes8 = torch.cuda.max_memory_allocated(), state_bytes(state.opt)
-    if not (all(math.isfinite(x) for x in losses8) and losses8[-1] < losses8[0]):
-        fail(f"train 8-bit: the loss did not fall: {losses8}")
-    if not abs(losses8[0] - losses[0]) <= 1e-5 * abs(losses[0]):
-        fail(f"train 8-bit: step 0's loss {losses8[0]} != the float32 run's {losses[0]} (same weights and batch)")
-    print(f"  8-bit moments: losses {[round(x, 4) for x in losses8]}, steps {[round(x * 1e3, 1) for x in s8]} ms, "
-          f"moments {bytes8 / 1e9:.2f} GB, peak {peak8 / 1e9:.2f} GB")
-    del state
+        step_s.append(time.perf_counter() - t0)
+        print(f"    step {i}: loss {losses[-1]:.4f}, grad norm {float(m['grad_norm']):.4f}; {step_s[-1] * 1e3:.1f} ms")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    a_step = {"ssd_scan": ssm * k, "ssd_scan_bwd": ssm * k, "flash_attention": attn * k,
+              "flash_attention_bwd": attn * k}
+    want = {name: v * steps for name, v in a_step.items() if v}
+    if {name: v for name, v in launches.items() if v} != want:
+        fail(f"train {family}: launches {launches}, expected {want}")
+    if attn:
+        shape = (b // k, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, "float32", True)
+        by_shape = {shape: attn * k * steps}
+        if flash_attention.launches_by_shape != by_shape or flash_attention_bwd.launches_by_shape != by_shape:
+            fail(f"train {family}: B4 launches by shape {flash_attention.launches_by_shape}, backward "
+                 f"{flash_attention_bwd.launches_by_shape}; expected {by_shape}")
+        body = cell.get("body")
+        if body and not (flash_attention.launches_by_body[body] == flash_attention_bwd.launches_by_body[body]
+                         == by_shape[shape]):
+            fail(f"train {family}: B4 launches by body {flash_attention.launches_by_body}, backward "
+                 f"{flash_attention_bwd.launches_by_body}; expected all {by_shape[shape]} each on \"{body}\"")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and min(losses[1:]) < losses[0]):
+        fail(f"train {family}: the loss did not fall over {steps} steps: {losses}")
+    bad = [n_ for n_, p in state.params.named_parameters() if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"train {family}: non-finite parameters {bad}")
+
+    state, prof = profiled_step(torch, step, state, batch, f"train {family}")
+    share = device_share(prof, "train.step", None,
+                         keys=("ssd_scan_", "ssd_bwd_", "flash_attention", "flash_attention_bwd"))
+    busy, ms = share["busy_ms"], share["by_key"]
+    gemm = share["gemm_ms"]                         # no B6 or B4 kernel's name holds "gemm", "gemv" or "nvjet"
+    step_ms = st.median(step_s[1:]) * 1e3
+    split = dict(b6_fwd_ms=ms["ssd_scan_"], b6_bwd_ms=ms["ssd_bwd_"],
+                 b4_fwd_ms=ms["flash_attention"] - ms["flash_attention_bwd"], b4_bwd_ms=ms["flash_attention_bwd"])
+    print(f"  {steps} steps: losses {[round(x, 4) for x in losses]}; a step {step_ms:.1f} ms (median of steps 1.."
+          f"{steps - 1}; step 0 {step_s[0] * 1e3:.1f}) = {tokens / step_ms * 1e3:.1f} tokens/s; peak "
+          f"{peak / 1e9:.2f} GB; a step launches {({k_: v for k_, v in a_step.items() if v})}")
+    rate = "" if gemm_flops is None else f" ({gemm_flops:.4g} flops, {gemm_flops / gemm / 1e9:.1f} TFLOP/s)"
+    print(f"profile: a train step span {share['span_ms']:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"{100 * share['idle']:.1f}%); cuBLAS products {gemm:.1f} ms = {100 * gemm / busy:.1f}%{rate}; "
+          + ", ".join(f"{name[:-3].replace('_', ' ')} {v:.1f} ms = {100 * v / busy:.1f}%" for name, v in split.items())
+          + f"; the rest {busy - gemm - sum(split.values()):.1f} ms")
+    del state, params, prof, m
     torch.cuda.empty_cache()
-    metrics = dict(arch=TRAIN["arch"], layers=cfg.num_layers, params=n_params, batch=b, seq=seq, microbatches=k,
+    metrics = dict(arch=cell["arch"], layers=cfg.num_layers, params=n_params, batch=b, seq=seq, microbatches=k,
                    losses=losses, step_ms=step_ms, first_step_ms=step_s[0] * 1e3, tokens_per_s=tokens / step_ms * 1e3,
-                   max_memory_allocated=peak, profile=bwd, b4_fwd_ms=fwd_ms, gemm_flops=gemm_flops,
-                   b4_launches_a_step=want[shape] // TRAIN["steps"], losses_8bit=losses8,
-                   step_ms_8bit=[x * 1e3 for x in s8], moments_bytes_8bit=bytes8, max_memory_allocated_8bit=peak8)
+                   max_memory_allocated=peak, launches_a_step={k_: v for k_, v in a_step.items() if v},
+                   gemm_flops=gemm_flops,
+                   profile=dict(span_ms=share["span_ms"], busy_ms=busy, idle=share["idle"], gemm_ms=gemm, **split))
+
+    if cell.get("steps_8bit"):
+        # the 8-bit moments: fresh weights, the same batch
+        run8 = dataclasses.replace(run, adam_8bit=True)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(init_params(cfg, 0, torch.float32, cuda), run8)
+        step8 = build_train_step(cfg, run8)
+        losses8, s8 = [], []
+        for _ in range(cell["steps_8bit"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step8(state, batch)
+            losses8.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            s8.append(time.perf_counter() - t0)
+        peak8, bytes8 = torch.cuda.max_memory_allocated(), state_bytes(state.opt)
+        if not (all(math.isfinite(x) for x in losses8) and losses8[-1] < losses8[0]):
+            fail(f"train {family} 8-bit: the loss did not fall: {losses8}")
+        if not abs(losses8[0] - losses[0]) <= 1e-5 * abs(losses[0]):
+            fail(f"train {family} 8-bit: step 0's loss {losses8[0]} != the float32 run's {losses[0]} (same "
+                 f"weights and batch)")
+        print(f"  8-bit moments: losses {[round(x, 4) for x in losses8]}, steps {[round(x * 1e3, 1) for x in s8]} "
+              f"ms, moments {bytes8 / 1e9:.2f} GB, peak {peak8 / 1e9:.2f} GB")
+        del state, m
+        torch.cuda.empty_cache()
+        metrics.update(losses_8bit=losses8, step_ms_8bit=[x * 1e3 for x in s8], moments_bytes_8bit=bytes8,
+                       max_memory_allocated_8bit=peak8)
+    del batch
     return launches, metrics
 
 
 def reduced_train(torch) -> dict:
-    """The reduced dense, moe, vlm and audio models (``TRAIN_REDUCED``) on
-    the card against the same on the CPU (weights made on the CPU and
-    copied): a microbatch's gradients, each leaf within 1e-4·max |cpu| +
-    1e-6, and 2 steps of 2 microbatches with remat, the losses within 1e-4
-    relative (not the parameters: Adam's first steps move a weight whose
-    gradient is rounding noise by ±lr, its sign the noise's); the
-    ssm and hybrid families raise NotImplementedError on the card (B6 has
-    no backward there yet, ROADMAP A13.6b)."""
+    """The reduced models of every family (``TRAIN_REDUCED``) on the card
+    against the same on the CPU (weights made on the CPU and copied): a
+    microbatch's gradients, each leaf within 1e-4·max |cpu| + 1e-6, and 2
+    steps of 2 microbatches with remat, the losses within 1e-4 relative
+    (not the parameters: Adam's first steps move a weight whose gradient is
+    rounding noise by ±lr, its sign the noise's); the card's run launches
+    B6's backward where the model has a Mamba-2 layer and B4's where it has
+    attention.  B5, which no train path reaches, raises under a gradient."""
     import copy
 
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.models.transformer import init_params
     from repro_torch.train.train_step import build_train_step, init_train_state, microbatch_grad
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     out = {}
     for arch in TRAIN_REDUCED:
-        cfg, run = train_config(arch)
+        cfg, run = train_config(reduced_arch=arch)
         g = torch.Generator().manual_seed(5)
         n = 32 - (cfg.num_patches if cfg.family == "vlm" else 0)
         batch = {"tokens": torch.randint(0, cfg.vocab, (4, n), generator=g),
@@ -3976,7 +4184,7 @@ def reduced_train(torch) -> dict:
         if cfg.encoder_layers:
             batch["frames"] = torch.randn((4, 16, cfg.d_model), generator=g)
         weights = init_params(cfg, 0, torch.float32, cpu)
-        res = {}
+        res, before = {}, launch_counts()
         for dev in (cuda, cpu):
             on_dev = {key: x.to(dev) for key, x in batch.items()}
             _, grads = microbatch_grad(copy.deepcopy(weights).to(dev), {key: x[:2] for key, x in on_dev.items()},
@@ -3988,26 +4196,29 @@ def reduced_train(torch) -> dict:
                 state, m = step(state, on_dev)
                 losses.append(float(m["loss"]))
             res[dev.type] = (losses, {n_: g_.cpu() for n_, g_ in grads.items()})
+        ran = {name: v - before[name] for name, v in launch_counts().items() if v != before[name]}
+        attn, ssm, _ = layer_kinds(cfg)
+        if bool(ran.get("ssd_scan_bwd")) != bool(ssm) or bool(ran.get("flash_attention_bwd")) != bool(attn):
+            fail(f"reduced train {arch}: the card's run launched {ran} ({attn} attention, {ssm} Mamba-2 layers)")
         rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(res["cuda"][0], res["cpu"][0]))
         worst = max(float((res["cuda"][1][n_] - g_).abs().max()) / (1e-4 * float(g_.abs().max()) + 1e-6)
                     for n_, g_ in res["cpu"][1].items())
         if not (rel <= 1e-4 and worst <= 1.0):
             fail(f"reduced train {arch}: card != CPU: losses {res['cuda'][0]} vs {res['cpu'][0]}, largest gradient "
                  f"|diff| / limit {worst}")
-        out[arch] = dict(losses_card=res["cuda"][0], losses_cpu=res["cpu"][0], loss_rel=rel, grad_diff_over_limit=worst)
+        out[arch] = dict(losses_card=res["cuda"][0], losses_cpu=res["cpu"][0], loss_rel=rel, grad_diff_over_limit=worst,
+                         launches=ran)
         print(f"  reduced {arch} ({cfg.family}): the gradients of a microbatch card == CPU (largest |diff| / "
               f"(1e-4·max |g| + 1e-6) {worst:.3g}); 2 steps of 2 microbatches with remat: losses "
-              f"{[round(x, 5) for x in res['cuda'][0]]} (rel {rel:.2g})")
-    for arch in TRAIN_RAISES:
-        cfg, run = train_config(arch)
-        params = init_params(cfg, 0, torch.float32, cuda)
-        tokens = torch.zeros((1, 64), dtype=torch.int64, device=cuda)
-        try:
-            microbatch_grad(params, {"tokens": tokens, "labels": tokens}, cfg, run, moe_groups=1)
-        except NotImplementedError as exc:
-            print(f"  reduced {arch} ({cfg.family}) on the card raises NotImplementedError: {exc}")
-        else:
-            fail(f"reduced train {arch}: a gradient through B6 on the card did not raise")
+              f"{[round(x, 5) for x in res['cuda'][0]]} (rel {rel:.2g}); the card's launches {ran}")
+    q = torch.randn((1, 4, 64), device=cuda, requires_grad=True)
+    cache = torch.randn((1, 8, 4, 64), device=cuda)
+    try:
+        decode_ops.decode(q, cache, cache, torch.full((1,), 8, dtype=torch.int32, device=cuda))
+    except NotImplementedError as exc:
+        print(f"  B5 under a gradient on the card raises NotImplementedError: {exc}")
+    else:
+        fail("flash decode under a gradient on the card did not raise")
     return out
 
 
@@ -4097,6 +4308,7 @@ def main() -> int:
     check_b5_build(built["flash_decode"])
     check_b6_build(built["ssd_scan"])
     check_bwd_build(built["flash_attention_bwd"])
+    check_b6_bwd_build(built["ssd_scan_bwd"])
 
     phase("kernels vs plain versions on the card:")
     rows = check_kernels(torch)
@@ -4106,6 +4318,8 @@ def main() -> int:
     check_attention_bwd(torch, rows)
     phase("SSD chunk scan (B6) vs its plain version on the card:")
     check_ssd_kernel(torch, rows)
+    phase("B6's backward vs its plain version on the card:")
+    check_ssd_bwd_kernel(torch, rows)
 
     # warm the card's lazily loaded PyTorch kernels outside the timed runs
     run_search(torch, dashcam(scale=1.0), dict(MAIN_PLAN, max_steps=100), torch.device("cuda"))
@@ -4201,11 +4415,14 @@ def main() -> int:
     phase(f"bf16 prefill path: {BF16_PREFILL['arch']}, full width and depth, bfloat16, batch {BF16_PREFILL['batch']}, prompt {BF16_PREFILL['prompt']}:")
     bf16_launches, bf16_metrics = bf16_prefill_path(torch)
     reduced_bf16_prefill(torch)
-    phase(f"train path: {TRAIN['arch']} at full width, {TRAIN['layers']} of 64 layers, float32, {TRAIN['steps']} "
-          f"AdamW steps of {TRAIN['microbatches']} microbatches x {TRAIN['seq']} tokens on a fixed batch, lr "
-          f"{TRAIN['lr']}; then {TRAIN['steps_8bit']} steps with the 8-bit moments:")
-    train_launches, train_metrics = train_path(torch)
-    phase("reduced training, card vs CPU (dense, moe, vlm, audio); ssm and hybrid raise on the card:")
+    train_launches, train_metrics = {}, {}
+    for family, cell in TRAIN_CELLS.items():
+        depth = f"{cell['layers']} of {ARCHS[cell['arch']].num_layers} layers" if cell["layers"] else "full depth"
+        then = f"; then {cell['steps_8bit']} steps with the 8-bit moments" if cell.get("steps_8bit") else ""
+        phase(f"train path ({family}): {cell['arch']} at full width, {depth}, float32, {cell['steps']} AdamW steps of "
+              f"{cell['microbatches']} microbatches x {cell['seq']} tokens on a fixed batch, lr {cell['lr']}{then}:")
+        train_launches[family], train_metrics[family] = train_cell(torch, family)
+    phase("reduced training, card vs CPU (dense, moe, vlm, audio, ssm, hybrid):")
     train_metrics["reduced"] = reduced_train(torch)
     phase("the train launcher on the card (reduced config), with a checkpoint and a resume:")
     train_metrics["launcher"] = launcher_path(torch)
@@ -4274,7 +4491,11 @@ def main() -> int:
         # B4's backward replaces no TPU kernel: it computes what jax.grad of the reference's
         # plain-jnp blocked_attention gives its train step
         ("flash_attention_bwd", ("flash_attention_bwd", *BWD_TRAIN), "src/repro_torch/csrc/flash_attention_bwd.cu",
-         "src/repro/models/attention.py:76", train_launches["flash_attention_bwd"]),
+         "src/repro/models/attention.py:76", train_launches["dense"]["flash_attention_bwd"]),
+        # B6's backward replaces no TPU kernel either: it computes what jax.grad of the reference's
+        # plain-jnp chunked SSD gives its train step; launches: the mamba2 train cell's 5 steps
+        ("ssd_scan_bwd", ("ssd_scan_bwd", *B6_BWD_TRAIN), "src/repro_torch/csrc/ssd_scan_bwd.cu",
+         "src/repro/models/mamba2.py:109", train_launches["ssm"]["ssd_scan_bwd"]),
     ):
         row = rows[key]
         summary.append(dict(
@@ -4288,7 +4509,7 @@ def main() -> int:
                                                  "kernels_a_call", "old_ms", "old_call_ms", "state",
                                                  "library_gqa_ms", "library_repeat_ms",
                                                  "sdpa_backend", "sdpa_repeat_backend", "issued_ops",
-                                                 "rel_err") if k in row})
+                                                 "kernel_ops", "rel_err") if k in row})
     phase("done; the summary lines follow")
     print(f"kernels_a_call: {CAPTURES['captures']} profiler captures, the fewest leading fills one kept "
           f"{CAPTURES['fewest_fills_kept']} of {SPARES}, {CAPTURES['retakes']} retakes")
@@ -4317,7 +4538,8 @@ def main() -> int:
                                    "serve_ssm": serve_launches["ssm"], "serve_moe": serve_launches["moe"],
                                    "serve_hybrid": serve_launches["hybrid"], "serve_vlm": serve_launches["vlm"],
                                    "serve_audio": serve_launches["audio"], "detect": detect_launches,
-                                   "prefill_bf16": bf16_launches, "train": train_launches}}))
+                                   "prefill_bf16": bf16_launches,
+                                   **{f"train_{family}": v for family, v in train_launches.items()}}}))
     print(f"{smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,7 +17,7 @@ def counted_wrappers() -> dict:
     from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.iou_match.kernel import (iou_matrix, iou_matrix_batched, match_update,
                                                       match_update_batched)
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.thompson.kernel import (thompson_choose, thompson_choose_batched, thompson_round,
                                                      thompson_round_batched)
 
@@ -26,7 +26,7 @@ def counted_wrappers() -> dict:
             "iou_matrix": iou_matrix, "iou_matrix_batched": iou_matrix_batched,
             "match_update": match_update, "match_update_batched": match_update_batched,
             "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-            "flash_decode": flash_decode, "ssd_scan": ssd_scan}
+            "flash_decode": flash_decode, "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def launch_counts() -> dict:

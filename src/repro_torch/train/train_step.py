@@ -6,9 +6,10 @@ the batch's leading axis split into ``run.microbatches`` slices, each
 slice's loss and gradients by autograd (``microbatch_grad``), summed into
 float32 accumulators in order and scaled by 1/k, then one ``apply_adamw``.
 On the card the attention's backward is ``flash_attention_bwd`` (through
-``kernels/flash_attention/ops.py``); the ssm and hybrid families' B6 and
-the decode kernel B5 have no backward there yet and raise (ROADMAP
-A13.6b), and the CPU runs the plain versions under autograd.  The mesh
+``kernels/flash_attention/ops.py``) and the SSD scan's is ``ssd_scan_bwd``
+(through ``kernels/ssd_scan/ops.py``); the decode kernel B5 has no
+backward (no train path reaches it) and raises; the CPU runs the plain
+versions and their hand-written backwards.  The mesh
 and the cross-pod gradient compression are ROADMAP A13.6c.
 
 The parameters are a ``ParamNode`` whose leaves ``init_train_state``

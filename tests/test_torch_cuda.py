@@ -25,8 +25,8 @@ from repro_torch.kernels.flash_decode.kernel import decode_splits, flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.iou_match.kernel import iou_matrix, iou_matrix_batched, match_update, match_update_batched
 from repro_torch.kernels.iou_match.ref import iou_ref, match_update_ref, match_update_split_ref
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
 from repro_torch.core import prng
 from repro_torch.core.state import SamplerState
 from repro_torch.kernels.thompson.kernel import (round_splits, thompson_choose, thompson_choose_batched,
@@ -594,6 +594,70 @@ def test_ssd_scan_kernel_equals_plain(card, b, s, h, p, n, chunk, decay):
     assert y.shape == x.shape and hs.shape == rh.shape == (b, h, p, n)
     torch.testing.assert_close(y, ry, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(hs, rh, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,decay", [
+    (2, 512, 8, 64, 128, 256, "strong"),     # mamba2's own chunk of 256
+    (1, 200, 4, 32, 64, 100, "strong"),      # chunk not a multiple of the 64-row tile
+    (2, 2048, 8, 64, 128, 1024, "weak"),     # serve widths, 2 chunks, nothing underflows
+    (1, 256, 40, 16, 32, 64, "weak"),        # more than 32 heads: the pairs' head groups summed
+    (1, 400, 3, 12, 20, 200, "a=-8"),        # a small odd width; exp(acs) underflows
+])
+def test_ssd_scan_bwd_kernel_equals_plain(card, b, s, h, p, n, chunk, decay):
+    """B6's backward against ``ssd_bwd_ref`` from the same incoming states:
+    each of dx, ddt, dB, dC, da within 1e-4·max |ref|; a second call the
+    same bits; the forward's y and final state the same bits with the
+    incoming states kept and without; one count a call."""
+    g = torch.Generator().manual_seed(b * 1000 + s + h + p + n)
+    if decay == "weak":
+        dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(b, s, h, generator=g))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g))
+    x, dy = torch.randn(b, s, h, p, generator=g), torch.randn(b, s, h, p, generator=g)
+    bc = 0.3 * torch.randn(b, s, 2 * n, generator=g)
+    a = -torch.exp((math.log(8.0) if decay == "a=-8" else 0.0) + 0.3 * torch.randn(h, generator=g))
+    dh = torch.randn(b, h, p, n, generator=g)
+    x, dt, bc, a, dy, dh = (t.to(card) for t in (x, dt, bc, a, dy, dh))
+    bm, cm = bc[..., :n], bc[..., n:]
+    q = min(chunk, s)
+    y0, f0 = ssd_scan(x, dt, bm, cm, a, chunk=chunk)
+    h_in = torch.empty((b, s // q, h, n, p), device=card)
+    y1, f1 = ssd_scan(x, dt, bm, cm, a, chunk=chunk, h_in=h_in)
+    assert torch.equal(_bits(y0), _bits(y1)) and torch.equal(_bits(f0), _bits(f1))
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk)
+    again = ssd_scan_bwd(x, dt, bm, cm, a, dy, dh, h_in, chunk=chunk)
+    assert ssd_scan_bwd.launches == before + 2
+    want = ssd_bwd_ref(x, dt, bm, cm, a, dy, dh, h_in.transpose(-1, -2), chunk=chunk)
+    for name, u, v, w in zip(("dx", "ddt", "dB", "dC", "da"), got, again, want):
+        assert torch.equal(_bits(u), _bits(v)), name
+        assert torch.isfinite(u).all(), name
+        assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+def test_ssd_autograd_on_the_card_equals_the_cpu(card):
+    """``ops.ssd`` under autograd launches B6 and its backward on the card,
+    B and C column slices of one projection, and equals the CPU's autograd
+    function; with a final state's cotangent and without."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    g = torch.Generator().manual_seed(11)
+    x, dt = torch.randn(2, 128, 4, 16, generator=g), torch.nn.functional.softplus(torch.randn(2, 128, 4, generator=g))
+    bc, a = 0.3 * torch.randn(2, 128, 64, generator=g), -torch.exp(0.3 * torch.randn(4, generator=g))
+    dy, dh = torch.randn(2, 128, 4, 16, generator=g), torch.randn(2, 4, 16, 32, generator=g)
+    for final in (True, False):
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            leaves = [t.to(dev).requires_grad_(True) for t in (x, dt, bc, a)]
+            before = (ssd_scan.launches, ssd_scan_bwd.launches)
+            y, hs = ops.ssd(leaves[0], leaves[1], leaves[2][..., :32], leaves[2][..., 32:], leaves[3], chunk=64)
+            outs, cots = ([y, hs], [dy.to(dev), dh.to(dev)]) if final else ([y], [dy.to(dev)])
+            grads = torch.autograd.grad(outs, leaves, cots)
+            if dev.type == "cuda":
+                assert (ssd_scan.launches, ssd_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+            out[dev.type] = [t.cpu() for t in grads]
+        for u, w in zip(out["cuda"], out["cpu"]):
+            assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max()) + 1e-6
 
 
 def test_ssd_scan_refuses_what_it_cannot_run(card):
@@ -1397,7 +1461,8 @@ def test_no_gradient_is_lost_through_b4(card):
         assert float((c - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-6, name
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-base",
+                                  "mamba2-370m", "jamba-1.5-large-398b"])
 def test_reduced_train_step_on_the_card_equals_the_cpu(card, arch):
     """A microbatch's gradients within 1e-4·max |cpu| + 1e-6 each leaf, and
     two AdamW steps of 2 microbatches with remat, the losses within 1e-4
@@ -1435,22 +1500,12 @@ def test_reduced_train_step_on_the_card_equals_the_cpu(card, arch):
         assert float((out["cuda"][1][name] - x).abs().max()) <= 1e-4 * float(x.abs().max()) + 1e-6, name
 
 
-def test_ssm_training_raises_on_the_card(card):
-    """B6 (and B5) have no backward yet: a gradient through them raises
-    rather than stop silently (ROADMAP A13.6b)."""
-    from repro_torch.configs import ARCHS, RunConfig, scale_down
-    from repro_torch.models.transformer import init_params
-    from repro_torch.train.train_step import microbatch_grad
-
-    cfg = scale_down(ARCHS["mamba2-370m"])
-    params = init_params(cfg, 0, torch.float32, card)
-    tokens = torch.zeros((1, 32), dtype=torch.int64, device=card)
-    with pytest.raises(NotImplementedError, match="A13.6b"):
-        microbatch_grad(params, {"tokens": tokens, "labels": tokens}, cfg, RunConfig(param_dtype="float32"),
-                        moe_groups=1)
-    q = torch.randn((1, 4, 64), device=card, requires_grad=True)
-    cache = torch.randn((1, 8, 4, 64), device=card)
+def test_decode_under_a_gradient_raises_on_the_card(card):
+    """B5 has no backward (no train path decodes): a gradient through it
+    raises rather than stop silently."""
     from repro_torch.kernels.flash_decode import ops as decode_ops
 
-    with pytest.raises(NotImplementedError, match="A13.6b"):
+    q = torch.randn((1, 4, 64), device=card, requires_grad=True)
+    cache = torch.randn((1, 8, 4, 64), device=card)
+    with pytest.raises(NotImplementedError, match="no backward"):
         decode_ops.decode(q, cache, cache, torch.full((1,), 8, dtype=torch.int32, device=card))

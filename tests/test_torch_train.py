@@ -1,7 +1,9 @@
 """The port's training slice against the JAX package, on the CPU.
 
-Held to JAX on the same numpy-seeded inputs and the same weights (the
-reference's ``init_params`` converted with ``convert.params_from_numpy``):
+Held to JAX on the same numpy-seeded inputs and the same weights (drawn
+with numpy, each leaf seeded by its path's CRC-32, and carried into both
+packages with ``convert.params_from_numpy``; the reference's own
+``init_params`` follows ``PYTHONHASHSEED``, ROADMAP C6):
 * ``prng.randint`` and ``DeterministicTokenPipeline.batch_at`` bit for bit
   (vocab 152,064, many seeds and steps), the frame labelling order exactly;
 * ``quantize_blockwise``'s q and scale bit for bit in both layouts;
@@ -31,6 +33,7 @@ import json
 import os
 import re
 import sys
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +59,7 @@ from repro_torch.core import prng
 from repro_torch.data.pipeline import (DeterministicTokenPipeline, PrefetchPipeline, ShuffledFramePipeline,
                                        TrainBatchSpec)
 from repro_torch.models import transformer as t_tf
+from repro_torch.models.layers import flat_specs
 from repro_torch.models.stacked import stack_params
 from repro_torch.train import checkpoint as t_ckpt
 from repro_torch.train import optimizer as t_opt
@@ -82,11 +86,34 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _weights(cfg) -> dict:
+    """The reference's parameter tree of numpy arrays, drawn as the schema's
+    init says with numpy, each leaf seeded by its path's CRC-32 as the
+    port's init is (ROADMAP C6): the reference's ``init_params`` seeds by
+    the path's ``hash``, so its weights follow ``PYTHONHASHSEED``."""
+    tree: dict = {}
+    for path, spec in flat_specs(t_tf.backbone_schema(cfg)).items():
+        if spec.init in ("zeros", "ones"):
+            w = np.full(spec.shape, 0.0 if spec.init == "zeros" else 1.0, np.float32)
+        else:
+            rng = np.random.default_rng(zlib.crc32(path.encode()))
+            w = (rng.standard_normal(spec.shape) * spec.std()).astype(np.float32)
+        *parents, leaf = path.split(".")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = w
+    return tree
+
+
 def _models(arch, **kw):
-    """(JAX config, port config, JAX params, the same params in the port)."""
+    """(JAX config, port config, JAX params, the same params in the port):
+    one set of weights (``_weights``) carried into both packages."""
     jcfg, tcfg = j_scale_down(J_ARCHS[arch], **kw), scale_down(ARCHS[arch], **kw)
-    jp = j_tf.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tcfg, jp, convert.params_from_numpy(_np_tree(jp), tcfg, "cpu")
+    tree = _weights(tcfg)
+    jp = jax.tree.map(jnp.asarray, tree)
+    assert jax.tree.structure(jp) == jax.tree.structure(j_tf.init_params(jcfg, jax.random.PRNGKey(0)))
+    return jcfg, tcfg, jp, convert.params_from_numpy(tree, tcfg, "cpu")
 
 
 def _batch(cfg, b=B, s=S, seed=1):
@@ -361,6 +388,34 @@ def test_train_steps_follow_jax(arch, adam_8bit):
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert min(tl[1:]) < tl[0], tl
     assert ts.step == int(js.step) == len(tl)
+
+
+def test_granite_router_stays_off_a_near_tie(monkeypatch):
+    """Over the five steps of ``test_train_steps_follow_jax``'s granite-moe
+    case (the same weights, batch and lr), every token's k-th and (k+1)-th
+    largest router logits differ by more than 1e-3, far above the two
+    packages' float32 rounding: one flipped top-k choice, which would move
+    every token of that test's repeated-token batch at once, cannot break
+    its 1e-4 gate (ROADMAP C1)."""
+    from repro_torch.models import moe
+
+    margins = []
+    route = moe.route
+
+    def watched(logits, cfg, c):
+        top = torch.topk(logits.detach(), cfg.top_k + 1, dim=-1).values
+        margins.append(float((top[..., cfg.top_k - 1] - top[..., cfg.top_k]).min()))
+        return route(logits, cfg, c)
+
+    monkeypatch.setattr(moe, "route", watched)
+    _, tcfg, _, tp = _models("granite-moe-1b-a400m")
+    trun = dataclasses.replace(T_RUN, learning_rate=1e-2)
+    step = t_ts.build_train_step(tcfg, trun)
+    state = t_ts.init_train_state(tp, trun)
+    batch = _t({"tokens": np.ones((B, S), np.int32), "labels": np.ones((B, S), np.int32)})
+    for _ in range(5):
+        state, _ = step(state, batch)
+    assert margins and min(margins) > 1e-3, margins
 
 
 def test_surrogate_step_matches_jax():
